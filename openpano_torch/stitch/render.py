@@ -1,0 +1,328 @@
+"""Render planning + linear blending.
+
+Reference: stitch/stitcher_image.{hh,cc} (ConnectedImages) and
+stitch/blender.cc (LinearBlender); counterpart of
+``openpano_tpu/stitch/render.py``.
+
+Host side (``plan_render``, numpy): project 400 sampled border points of each
+image through its homography, take per-image and global bboxes
+(stitcher_image.cc:41-77), and calibrate the output resolution so that the
+identity image keeps its native resolution (:79-114, with the 80000 px /
+1e9 px failure gates and the MAX_OUTPUT_SIZE downscale).
+
+Device side (``blend_linear``): the canvas is covered by jobs, one per
+render item, each a [TH, TW] slab at the item's bbox origin, split into
+column bands (``_tile_jobs``).  Each job inverse-maps its slab through
+proj2homo -> homo_inv -> perspective divide (z > 0 only) -> half-shift,
+samples the source bilinearly with Color::NO propagation (the x-paired
+layout of the JAX package), weights by the center distance
+w = 0.5 - |c/w - 0.5| (times the vertical factor for unordered input;
+blender.cc:27-36), and adds into the canvas accumulators.  Jobs add in the
+JAX package's order (bands, then items), so the canvas is the same sum.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry.polygon import convex_hull
+from ..ops.imgproc import INVALID, bilinear_prologue
+from .projection import PROJECTIONS
+
+BLEND_GROUPS = 4
+
+
+class RenderPlan(NamedTuple):
+    proj: str                # projection method name
+    homos: np.ndarray        # [N,3,3] image half-shifted px -> identity frame
+    homo_invs: np.ndarray    # [N,3,3]
+    whs: np.ndarray          # [N,2] per-image (w,h), float
+    proj_min: np.ndarray     # (2,) projection-plane bbox min
+    resolution: np.ndarray   # (2,) projection units per output pixel
+    out_w: int
+    out_h: int
+    ranges: np.ndarray       # [N,4] per-image canvas bbox (x0,y0,x1,y1), int
+    items: np.ndarray        # [M,5] (img, x0,y0,x1,y1) render items; an image
+                             # whose angular span crosses the +-pi seam
+                             # becomes one item per canvas-edge strip
+    hulls: tuple             # per-item convex hull of the projected border
+                             # in canvas px, [K,2] float arrays
+
+
+def _np_homo2proj(proj: str, h: np.ndarray) -> np.ndarray:
+    x, y, z = h[..., 0], h[..., 1], h[..., 2]
+    if proj == "flat":
+        return np.stack([x / z, y / z], -1)
+    if proj == "cylindrical":
+        return np.stack([np.arctan2(x, z), y / np.hypot(x, z)], -1)
+    return np.stack([np.arctan2(x, z), np.arctan2(y, np.hypot(x, z))], -1)
+
+
+def plan_render(homos: np.ndarray, whs: np.ndarray, identity_idx: int,
+                proj: str, max_output_size: int) -> RenderPlan:
+    """homos: [N,3,3] mapping half-shifted pixel coords of image i into the
+    identity frame; whs: [N,2] image sizes."""
+    n = homos.shape[0]
+    t = np.arange(100) / 100.0 - 0.5
+    border = np.concatenate([
+        np.stack([t, np.full(100, -0.5)], -1),
+        np.stack([t, np.full(100, 0.5)], -1),
+        np.stack([np.full(100, -0.5), t], -1),
+        np.stack([np.full(100, 0.5), t], -1),
+    ])                                                    # [400,2] normalized
+
+    ranges = np.zeros((n, 4))
+    proj_min = np.full(2, np.inf)
+    proj_max = np.full(2, -np.inf)
+    per_min = np.zeros((n, 2))
+    per_max = np.zeros((n, 2))
+    per_pp = []
+    for i in range(n):
+        pts = border * whs[i]                             # half-shifted px
+        hpt = np.concatenate([pts, np.ones((400, 1))], -1) @ homos[i].T
+        pp = _np_homo2proj(proj, hpt)
+        per_pp.append(pp)
+        per_min[i] = pp.min(0)
+        per_max[i] = pp.max(0)
+        proj_min = np.minimum(proj_min, per_min[i])
+        proj_max = np.maximum(proj_max, per_max[i])
+
+    # get_final_resolution (stitcher_image.cc:79-114)
+    refw, refh = whs[identity_idx]
+    Hi = homos[identity_idx]
+    c2 = Hi @ np.array([refw / 2.0, refh / 2.0, 1.0])
+    c1 = Hi @ np.array([-refw / 2.0, -refh / 2.0, 1.0])
+    id_range = _np_homo2proj(proj, c2) - _np_homo2proj(proj, c1)
+    if proj != "flat":
+        if id_range[0] < 0:
+            id_range[0] += 2 * np.pi
+        if id_range[1] < 0:
+            id_range[1] += np.pi
+    resolution = np.abs(id_range) / np.array([refw, refh])
+    target = (proj_max - proj_min) / resolution
+    max_edge = target.max()
+    if max_edge > 80000 or target[0] * target[1] > 1e9:
+        raise RuntimeError(
+            "Target size too large. Looks like a stitching failure!"
+        )  # stitcher_image.cc:105-106
+    if max_edge > max_output_size:
+        resolution = resolution * (max_edge / max_output_size)
+    size = ((proj_max - proj_min) / resolution).astype(int)
+
+    items = []
+    hulls = []
+    for i in range(n):
+        tl = ((per_min[i] - proj_min) / resolution).astype(int)
+        br = ((per_max[i] - proj_min) / resolution).astype(int)
+        ranges[i] = [tl[0], tl[1], min(br[0], size[0]), min(br[1], size[1])]
+        pp = per_pp[i]
+        if proj != "flat" and per_max[i][0] - per_min[i][0] > np.pi:
+            # angular-wrap split: one item per edge strip
+            for sel in (pp[:, 0] < 0, pp[:, 0] >= 0):
+                if not sel.any():
+                    continue
+                smin = pp[sel].min(0)
+                smax = pp[sel].max(0)
+                stl = ((smin - proj_min) / resolution).astype(int)
+                sbr = ((smax - proj_min) / resolution).astype(int)
+                items.append([i, stl[0], stl[1],
+                              min(sbr[0], size[0]), min(sbr[1], size[1])])
+                hulls.append(convex_hull((pp[sel] - proj_min) / resolution))
+        else:
+            items.append([i, *ranges[i].astype(int)])
+            hulls.append(convex_hull((pp - proj_min) / resolution))
+
+    return RenderPlan(
+        proj=proj,
+        homos=homos.astype(np.float64),
+        homo_invs=np.linalg.inv(homos).astype(np.float64),
+        whs=whs.astype(np.float64),
+        proj_min=proj_min,
+        resolution=resolution,
+        out_w=int(size[0]),
+        out_h=int(size[1]),
+        ranges=ranges.astype(np.int32),
+        items=np.asarray(items, np.int32).reshape(-1, 5),
+        hulls=tuple(hulls),
+    )
+
+
+def _poly_rect_intersects(poly: np.ndarray, x0, y0, x1, y1,
+                          margin=8.0) -> bool:
+    """Convex polygon vs axis-aligned rect (separating axes); the rect is
+    dilated by ``margin`` px to absorb the sagitta of the sampled hull."""
+    x0, y0, x1, y1 = x0 - margin, y0 - margin, x1 + margin, y1 + margin
+    if poly.shape[0] < 3:
+        px0, py0 = poly.min(0)
+        px1, py1 = poly.max(0)
+        return not (px1 < x0 or px0 > x1 or py1 < y0 or py0 > y1)
+    if poly[:, 0].max() < x0 or poly[:, 0].min() > x1:
+        return False
+    if poly[:, 1].max() < y0 or poly[:, 1].min() > y1:
+        return False
+    corners = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
+    nv = poly.shape[0]
+    edges = poly[(np.arange(nv) + 1) % nv] - poly
+    normals = np.stack([-edges[:, 1], edges[:, 0]], -1)       # [E,2]
+    pp = normals @ poly.T                                     # [E,V]
+    pc = normals @ corners.T                                  # [E,4]
+    sep = (pp.max(1) < pc.min(1)) | (pp.min(1) > pc.max(1))
+    return not sep.any()
+
+
+def _tile_jobs(plan: RenderPlan, groups: int, TH: int = 256, TW: int = 256,
+               item_slabs: bool = True):
+    """Jobs partitioned into ``groups`` column bands by x-origin (a band-g
+    job never writes columns < g*SW).  ``item_slabs=True``: one job per
+    render item sized to the largest item bbox (TH/TW ignored); otherwise
+    each item's bbox is covered by [TH, TW] tiles its hull touches.
+
+    Returns (G, SW, Hp, Wp, TH, TW, band_jobs), band_jobs[g] =
+    (img [J] int32, bbox [J,4] f32, origin [J,2] int32, item [J] int32),
+    as the JAX package's ``_tile_jobs`` (non-exact mode)."""
+    it = plan.items
+    r = it[:, 1:5]
+    if item_slabs:
+        TH = -(-int(np.maximum(r[:, 3] - r[:, 1], 1).max()) // 8) * 8
+        TW = -(-int(np.maximum(r[:, 2] - r[:, 0], 1).max()) // 128) * 128
+    oy_max = -(-plan.out_h // 8) * 8
+    ox_max = -(-plan.out_w // 128) * 128
+    Hp = oy_max + TH
+    Wp = ox_max + TW
+
+    G = groups if len(it) >= 2 * groups else 1
+    SW = -(-(-(-Wp // G)) // 128) * 128  # ceil(Wp/G) rounded up to 128
+    if item_slabs:
+        SW = max(SW, -(-TW // 128) * 128)  # one job spills <= one strip
+    while (G - 1) * SW >= Wp:  # last strip must be non-empty
+        G -= 1
+    Wp = G * SW
+
+    jobs: list[list[tuple]] = [[] for _ in range(G)]
+    for s in range(len(it)):
+        x0, y0, x1, y1 = r[s]
+        if item_slabs:
+            ox = min(max(int(x0), 0), ox_max)
+            oy = min(max(int(y0), 0), oy_max)
+            jobs[min(ox // SW, G - 1)].append((it[s, 0], r[s], (ox, oy), s))
+            continue
+        hull = plan.hulls[s] if plan.hulls else None
+        for oy in range(max(int(y0), 0), max(int(min(y1, plan.out_h)), 0), TH):
+            oy = min(oy, oy_max)
+            for ox in range(max(int(x0), 0),
+                            max(int(min(x1, plan.out_w)), 0), TW):
+                ox = min(ox, ox_max)
+                if hull is not None and not _poly_rect_intersects(
+                        hull, ox, oy, ox + TW, oy + TH):
+                    continue
+                jobs[min(ox // SW, G - 1)].append((it[s, 0], r[s], (ox, oy), s))
+
+    band_jobs = []
+    for band in jobs:
+        band_jobs.append((
+            np.asarray([j[0] for j in band], np.int32),
+            np.asarray([j[1] for j in band], np.float32).reshape(-1, 4),
+            np.asarray([j[2] for j in band], np.int32).reshape(-1, 2),
+            np.asarray([j[3] for j in band], np.int32),
+        ))
+    return G, SW, Hp, Wp, TH, TW, band_jobs
+
+
+def pair_imgs_x(imgs: torch.Tensor) -> torch.Tensor:
+    """[N,H,W,3] -> [N,H,W-1,6] with img6[y,x] = img[y,x] | img[y,x+1]: one
+    6-channel tap per bilinear row."""
+    return torch.cat([imgs[:, :, :-1], imgs[:, :, 1:]], dim=-1)
+
+
+def _sample_bilinear_paired(img6: torch.Tensor, y: torch.Tensor,
+                            x: torch.Tensor):
+    """Sentinel-aware bilinear sampling over the x-paired layout: img6 is
+    [H, W-1, 6] and the bounds follow the original width.  The lerp is
+    associated as (top, bottom) rows, like the JAX package's paired form."""
+    h = img6.shape[0]
+    w = img6.shape[1] + 1
+    inb, iy, ix, ry, rx = bilinear_prologue(h, w, y, x)
+    a = img6[iy, ix]          # p00 | p01
+    b = img6[iy + 1, ix]      # p10 | p11
+    ok = (a[..., 0] >= 0) & (a[..., 3] >= 0) & (b[..., 0] >= 0) \
+        & (b[..., 3] >= 0)
+    valid = inb & ok
+    top = a[..., :3] * (1 - rx) + a[..., 3:] * rx
+    bot = b[..., :3] * (1 - rx) + b[..., 3:] * rx
+    color = top * (1 - ry) + bot * ry
+    return torch.where(valid[..., None], color, INVALID), valid
+
+
+def _accumulate(imgs: torch.Tensor, plan: RenderPlan, ordered: bool):
+    """Run every job of ``_tile_jobs(plan, BLEND_GROUPS)`` in band order
+    into (color [Hp, Wp, 3], weight [Hp, Wp]) f32 accumulators."""
+    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, BLEND_GROUPS)
+    dev = imgs.device
+    imgs6 = pair_imgs_x(imgs.to(torch.float32))
+    _, proj2homo = PROJECTIONS[plan.proj]
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                    device=dev)
+    hinvs = f32(plan.homo_invs)
+    whs = f32(plan.whs)
+    proj_min, res = f32(plan.proj_min), f32(plan.resolution)
+    t_h = torch.arange(TH, dtype=torch.float32, device=dev)
+    t_w = torch.arange(TW, dtype=torch.float32, device=dev)
+    color_acc = torch.zeros(Hp, Wp, 3, dtype=torch.float32, device=dev)
+    w_acc = torch.zeros(Hp, Wp, dtype=torch.float32, device=dev)
+
+    for idx, rng, org, _ in band_jobs:
+        for k in range(len(idx)):
+            i, (ox, oy) = int(idx[k]), (int(org[k, 0]), int(org[k, 1]))
+            x0, y0, x1, y1 = (float(v) for v in rng[k])
+            hinv, wh = hinvs[i], whs[i]
+            cx = (ox + t_w) * res[0] + proj_min[0]
+            cy = (oy + t_h) * res[1] + proj_min[1]
+            cgrid = torch.stack(torch.broadcast_tensors(cx[None, :],
+                                                        cy[:, None]), -1)
+            hm = proj2homo(cgrid)
+            # the 3x3 inverse map as explicit f32 products (no tensor
+            # cores, hence no TF32 on the card)
+            ret = [hm[..., 0] * hinv[d, 0] + hm[..., 1] * hinv[d, 1]
+                   + hm[..., 2] * hinv[d, 2] for d in range(3)]
+            z = ret[2]
+            zsafe = torch.where(torch.abs(z) > 1e-20, z, 1e-20)
+            sx = ret[0] / zsafe + wh[0] * 0.5
+            sy = ret[1] / zsafe + wh[1] * 0.5
+            color, ok = _sample_bilinear_paired(imgs6[i], sy, sx)
+            w = 0.5 - torch.abs(sx / wh[0] - 0.5)
+            if not ordered:  # blend both directions (blender.cc:33-35)
+                w = w * (0.5 - torch.abs(sy / wh[1] - 0.5))
+            ax = ox + t_w[None, :]
+            ay = oy + t_h[:, None]
+            in_bbox = (ax >= x0) & (ax < x1) & (ay >= y0) & (ay < y1)
+            m = ok & (z > 0) & in_bbox
+            wm = torch.where(m, w, 0.0)
+            wc = torch.where(m[..., None], color, 0.0) * wm[..., None]
+            color_acc[oy : oy + TH, ox : ox + TW] += wc
+            w_acc[oy : oy + TH, ox : ox + TW] += wm
+    return color_acc, w_acc
+
+
+def blend_linear(imgs: torch.Tensor, plan: RenderPlan,
+                 ordered: bool) -> torch.Tensor:
+    """imgs: [N, H, W, 3] float in [0, 1] (INVALID marks empty pixels).
+    Returns the [out_h, out_w, 3] f32 canvas, INVALID where nothing was
+    rendered (``_finalize_canvas`` there)."""
+    color_acc, w_acc = _accumulate(imgs, plan, ordered)
+    full = color_acc[: plan.out_h, : plan.out_w]
+    wfull = w_acc[: plan.out_h, : plan.out_w]
+    has = wfull > 0
+    out = full / torch.where(has, wfull, 1.0)[..., None]
+    return torch.where(has[..., None], out, INVALID)
+
+
+def f32_to_u8(canvas: torch.Tensor):
+    """f32 canvas -> (u8 [H, W, 3], valid [H, W]): round-half-even of
+    clip(c, 0, 1) * 255 where valid, 255 elsewhere (cvt_f2uc,
+    imgproc.cc:328-337)."""
+    valid = canvas[..., 0] >= 0
+    u8 = torch.round(torch.clamp(canvas, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return torch.where(valid[..., None], u8, 255), valid

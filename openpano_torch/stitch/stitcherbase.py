@@ -1,0 +1,61 @@
+"""Feature extraction over an image set.
+
+Reference: StitcherBase (stitch/stitcherbase.{hh,cc}) — a loop over images
+doing load -> SIFT detect, erroring on an image with zero features
+(stitcherbase.cc:9-27); counterpart of ``openpano_tpu/stitch/stitcherbase.py``.
+
+Two grey routes, as in the JAX package, and they give different keypoints:
+
+- uint8 input greys FIRST, as the exact channel sum ``(r+g+b)/765`` in f32,
+  then resizes the grey plane to the working size (the JAX package's
+  ``_grey_sum_to_f32`` feeding ``_feature_chunk``);
+- float input resizes RGB to the working size and greys inside the detector
+  (``jnp.mean`` over channels).
+
+Images run through the detector in batches of ``FEATURE_BATCH``: the scale
+space of one batch is the live set.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import Config
+from ..ops.imgproc import resize, working_size
+from ..sift.descriptor import Features
+from ..sift.detector import detect_and_describe
+
+FEATURE_BATCH = 4
+
+
+def grey_u8(imgs: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, 3] uint8 -> [N, H, W] f32 mean of channels, from the exact
+    integer channel sum (stitcherbase.py:164-169 there)."""
+    s = imgs.to(torch.int32).sum(-1)
+    return s.to(torch.float32) / (3.0 * 255.0)
+
+
+def compute_features(imgs: torch.Tensor, cfg: Config) -> Features:
+    """imgs: [N, H, W, 3] uint8 (grey route first) or float32 RGB in [0, 1],
+    or [N, H, W] float grey, all on one device.  Returns batched Features
+    with half-shifted original-image coordinates; raises when an image has
+    no feature (stitcherbase.cc:20-21)."""
+    n, h, w = imgs.shape[0], imgs.shape[1], imgs.shape[2]
+    wh_, ww_ = working_size(w, h, cfg.SIFT_WORKING_SIZE)
+    orig = torch.tensor([w, h], dtype=torch.float32, device=imgs.device)
+    parts = []
+    for lo in range(0, n, FEATURE_BATCH):
+        batch = imgs[lo : lo + FEATURE_BATCH]
+        if batch.dtype == torch.uint8:
+            work = resize(grey_u8(batch), wh_, ww_)
+        else:
+            batch = batch.to(torch.float32)
+            work = resize(batch, wh_, ww_, rgb=batch.dim() == 4)
+        parts.append(detect_and_describe(
+            work, orig.expand(batch.shape[0], 2), cfg))
+    feats = Features(*(torch.cat(f, dim=0) for f in zip(*parts)))
+    counts = feats.valid.sum(1).tolist()
+    for i, c in enumerate(counts):
+        if c == 0:
+            raise RuntimeError(f"Cannot find feature in image {i}!")
+    return feats

@@ -1,0 +1,215 @@
+"""Synthetic scenes and views for tests and the chip smoke run (numpy only).
+
+A copy of the numpy-only generators of ``openpano_tpu.synth``, kept here so
+that the port never imports the JAX package (importing any module of it
+starts JAX).  Same functions, same seeds, same pixels.  ``strip_views`` adds
+the translated-strip set that TRANS mode stitches, cut from
+``procedural_scene_large`` so that no photo is needed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def procedural_scene(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Feature-rich procedural texture in [0,1]: multi-octave value noise
+    plus random high-contrast shapes (corners galore for SIFT)."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w, 3), np.float32)
+    for octave in range(2, 7):
+        gh, gw = h // 2 ** octave + 2, w // 2 ** octave + 2
+        grid = rng.uniform(size=(gh, gw, 3)).astype(np.float32)
+        ys = np.linspace(0, gh - 1.001, h)
+        xs = np.linspace(0, gw - 1.001, w)
+        y0 = ys.astype(int)
+        x0 = xs.astype(int)
+        fy = (ys - y0)[:, None, None]
+        fx = (xs - x0)[None, :, None]
+        up = (
+            grid[y0][:, x0] * (1 - fy) * (1 - fx)
+            + grid[y0][:, x0 + 1] * (1 - fy) * fx
+            + grid[y0 + 1][:, x0] * fy * (1 - fx)
+            + grid[y0 + 1][:, x0 + 1] * fy * fx
+        )
+        img += up * (0.5 ** (7 - octave))
+    img /= img.max()
+    # high-contrast rectangles and discs, dense enough that every camera
+    # view contains hundreds of corners
+    yy, xx = np.mgrid[0:h, 0:w]
+    n_shapes = max(400, h * w // 1500)
+    for _ in range(n_shapes):
+        cy, cx = rng.integers(0, h), rng.integers(0, w)
+        s = rng.integers(3, max(5, min(h, w) // 16))
+        col = rng.uniform(0, 1, 3).astype(np.float32)
+        if rng.random() < 0.5:
+            m = (np.abs(yy - cy) < s) & (np.abs(xx - cx) < s * rng.uniform(0.3, 2))
+        else:
+            m = (yy - cy) ** 2 + (xx - cx) ** 2 < s ** 2
+        img[m] = img[m] * 0.25 + col * 0.75
+    return np.clip(img, 0, 1)
+
+
+def render_views(
+    scene: np.ndarray,
+    n_views: int,
+    out_w: int = 640,
+    out_h: int = 480,
+    hfov_deg: float = 35.0,
+    overlap: float = 0.45,
+    v_span: float = 0.9,
+    seed: int = 0,
+    jitter: float = 0.0,
+):
+    """Render n_views images of a cylindrical scene with a yaw-rotating camera.
+
+    scene: [Hs, Ws, 3] texture wrapped on a cylinder.
+    Returns (views [n, out_h, out_w, 3] float32, truth dict) where truth has
+    `focal_px`, `yaws` (radians), and `hfov` — enough to validate estimated
+    cameras and pairwise homographies (H_gt = K R_rel K^-1).
+    """
+    rng = np.random.default_rng(seed)
+    hs, ws = scene.shape[:2]
+    hfov = np.radians(hfov_deg)
+    f = (out_w / 2) / np.tan(hfov / 2)           # focal in pixels
+    step = hfov * (1 - overlap)
+    yaws = (np.arange(n_views) - (n_views - 1) / 2) * step
+    if jitter:
+        yaws = yaws + rng.normal(scale=jitter * step, size=n_views)
+    total_angle = hfov + step * (n_views - 1) + 0.2
+    # vertical half-extent of the cylinder texture in h-units (y/hypot units)
+    vfov_half = np.tan(np.arctan((out_h / 2) / f)) * 1.15 / v_span
+
+    u = np.arange(out_w) - (out_w - 1) / 2.0
+    v = np.arange(out_h) - (out_h - 1) / 2.0
+    uu, vv = np.meshgrid(u, v)
+
+    views = np.empty((n_views, out_h, out_w, 3), np.float32)
+    for k, yaw in enumerate(yaws):
+        xr = np.cos(yaw) * uu + np.sin(yaw) * f
+        zr = -np.sin(yaw) * uu + np.cos(yaw) * f
+        ang = np.arctan2(xr, zr)
+        hgt = vv / np.hypot(xr, zr)
+        sx = (ang / total_angle + 0.5) * (ws - 1)
+        sy = (hgt / (2 * vfov_half) + 0.5) * (hs - 1)
+        x0 = np.clip(np.floor(sx).astype(int), 0, ws - 2)
+        y0 = np.clip(np.floor(sy).astype(int), 0, hs - 2)
+        fx = np.clip(sx - x0, 0, 1)[..., None]
+        fy = np.clip(sy - y0, 0, 1)[..., None]
+        img = (
+            scene[y0, x0] * (1 - fy) * (1 - fx)
+            + scene[y0, x0 + 1] * (1 - fy) * fx
+            + scene[y0 + 1, x0] * fy * (1 - fx)
+            + scene[y0 + 1, x0 + 1] * fy * fx
+        )
+        views[k] = img
+    truth = {"focal_px": f, "yaws": yaws, "hfov": hfov}
+    return views, truth
+
+
+def gt_pair_homography(truth: dict, i: int, j: int, out_w: int, out_h: int) -> np.ndarray:
+    """Ground-truth homography mapping half-shifted coords of view j into
+    view i: H = K R_i^T R_j K^-1 for pure yaw rotations."""
+    f = truth["focal_px"]
+    K = np.array([[f, 0, 0], [0, f, 0], [0, 0, 1.0]])
+    dyaw = truth["yaws"][j] - truth["yaws"][i]
+    R = np.array([
+        [np.cos(dyaw), 0, np.sin(dyaw)],
+        [0, 1, 0],
+        [-np.sin(dyaw), 0, np.cos(dyaw)],
+    ])
+    H = K @ R @ np.linalg.inv(K)
+    return H / H[2, 2]
+
+
+def procedural_scene_large(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Corner-rich texture that scales to equirect-panorama sizes
+    (procedural_scene's per-shape full-canvas masks are O(shapes * h * w)
+    — hopeless at 500 Mpx).  Fully vectorized: multi-octave value noise
+    for low-frequency content + a POSTERIZED independent noise field
+    (random 24-color palette, hard edges at every cell boundary — corner
+    features at triple points for SIFT), float32 in [0,1]."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((h, w, 3), np.float32)
+    for octave in range(3, 8):
+        gh, gw = h // 2 ** octave + 2, w // 2 ** octave + 2
+        grid = rng.uniform(size=(gh, gw, 3)).astype(np.float32)
+        ys = np.linspace(0, gh - 1.001, h)
+        xs = np.linspace(0, gw - 1.001, w)
+        y0 = ys.astype(int)
+        x0 = xs.astype(int)
+        fy = (ys - y0)[:, None, None].astype(np.float32)
+        fx = (xs - x0)[None, :, None].astype(np.float32)
+        up = (
+            grid[y0][:, x0] * (1 - fy) * (1 - fx)
+            + grid[y0][:, x0 + 1] * (1 - fy) * fx
+            + grid[y0 + 1][:, x0] * fy * (1 - fx)
+            + grid[y0 + 1][:, x0 + 1] * fy * fx
+        )
+        img += up * (0.5 ** (8 - octave))
+    img /= img.max()
+    # posterized cell fields: hard high-contrast edges at every cell
+    # boundary (corners at triple points; 16-64 px cells survive the SIFT
+    # working resize).  TWO independent posterize fields combine into
+    # ~1000 distinct junction colorings — one 32-color field alone makes
+    # the cell junctions so self-similar that the matcher's ratio test
+    # rejects nearly everything (measured: 29 raw 2-NN matches on a
+    # 37%-overlap pair with 1024 keypoints each).
+    def _poster(octaves, seed_off):
+        r2 = np.random.default_rng(seed + seed_off)
+        cell = np.zeros((h, w), np.float32)
+        for octave in octaves:
+            gh, gw = h // 2 ** octave + 2, w // 2 ** octave + 2
+            grid = r2.uniform(size=(gh, gw)).astype(np.float32)
+            ys = np.linspace(0, gh - 1.001, h)
+            xs = np.linspace(0, gw - 1.001, w)
+            y0 = ys.astype(int)
+            x0 = xs.astype(int)
+            fy = (ys - y0)[:, None].astype(np.float32)
+            fx = (xs - x0)[None, :].astype(np.float32)
+            cell += (
+                grid[y0][:, x0] * (1 - fy) * (1 - fx)
+                + grid[y0][:, x0 + 1] * (1 - fy) * fx
+                + grid[y0 + 1][:, x0] * fy * (1 - fx)
+                + grid[y0 + 1][:, x0 + 1] * fy * fx
+            )
+        return cell
+
+    # cell octaves start at 5 (32 px): octave-4 cells made the texture SO
+    # corner-dense that the per-octave candidate caps saturated in scan
+    # order and every view kept only top-of-image keypoints (a 1024-cap
+    # view had 0% of its keypoints in the bottom overlap strip) — the
+    # same order-biased truncation the reference's capacity caps exhibit
+    pal_a = rng.uniform(0.0, 1.0, size=(32, 3)).astype(np.float32)
+    pal_b = rng.uniform(-0.5, 0.5, size=(32, 3)).astype(np.float32)
+    ia = np.clip((_poster((6, 7), 1000) * 16).astype(np.int32), 0, 31)
+    ib = np.clip((_poster((7, 8), 2000) * 16).astype(np.int32), 0, 31)
+    return np.clip(0.2 * img + 0.8 * (pal_a[ia] + pal_b[ib] * 0.7), 0, 1)
+
+
+def strip_views(n: int, w: int, h: int, overlap: float = 0.4,
+                seed: int = 0, offsets: bool = False):
+    """n translated [h, w] crops of one wide procedural texture, stepping
+    ``w * (1 - overlap)`` px to the right with a few px of jitter per view
+    (a scanned strip / UAV pass: the TRANS-mode imaging model).
+
+    The texture is ``procedural_scene_large`` at most ``max(4w, 2048)``
+    columns wide, tiled horizontally as far as the strip needs; one period
+    is wider than a view, so no view overlaps a repeat of itself.
+    Returns float32 [n, h, w, 3] in [0, 1]; with ``offsets=True`` also the
+    [n, 2] (x, y) texture position of each view's top-left pixel, the
+    ground truth a stitch must recover."""
+    step = int(w * (1 - overlap))
+    need_w = w + step * (n - 1) + 32
+    scene_w = min(need_w, max(4 * w, 2048))
+    scene = procedural_scene_large(h + 64, scene_w, seed)
+    strip = np.tile(scene, (1, -(-need_w // scene_w), 1))
+    rng = np.random.default_rng(seed)
+    views = np.empty((n, h, w, 3), np.float32)
+    xy = np.empty((n, 2), np.int64)
+    for k in range(n):
+        x0 = 16 + k * step + int(rng.integers(-8, 9))
+        y0 = 32 + int(rng.integers(-6, 7))
+        views[k] = strip[y0 : y0 + h, x0 : x0 + w]
+        xy[k] = x0, y0
+    return (views, xy) if offsets else views

@@ -39,3 +39,8 @@ def _clear_jax_caches_per_module():
     cross-module recompiles."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where there is none")

@@ -1,0 +1,78 @@
+"""The port's boundary: no JAX, nothing of the JAX package, no silent CPU.
+
+Every Python file of ``openpano_torch`` and ``chip_smoke.py`` is parsed and
+any import of ``jax`` (or ``jaxlib``) or of ``openpano_tpu`` fails the test:
+importing any module of the JAX package would start JAX and turn on x64 for
+the whole process.  The entry point must refuse to run when there is no card
+and no device was named.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "openpano_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "openpano_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_files_exist():
+    files = _port_files()
+    assert all(f.exists() for f in files)
+    assert len(files) > 20
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_default_device_raises_without_card(monkeypatch):
+    """device=None means the card; without one the entry point raises
+    instead of running on the CPU."""
+    import numpy as np
+
+    from openpano_torch import Config, stitch_images
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True)
+    imgs = np.zeros((2, 32, 32, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stitch_images(imgs, cfg)
+
+
+def test_kernel_wrappers_never_take_plain_path_on_card():
+    """The wrappers route by the tensor's device: CPU tensors take the plain
+    version, CUDA tensors launch the kernel; nothing else is accepted."""
+    from openpano_torch.ops import windows
+
+    meta = torch.empty(2, 3, 4, 5, device="meta")
+    s = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        windows.orientation_histogram(meta[0], meta[0], s, s, s,
+                                      s.float(), s.float(), 8,
+                                      valid=s.bool())

@@ -1,0 +1,76 @@
+"""The CUDA kernels on the card against their plain versions.
+
+Needs an NVIDIA card and ``nvcc``; skips elsewhere (the kernels have no CPU
+mode: a CPU tensor takes the plain version).  Imports nothing of JAX, so it
+also runs on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest -m cuda
+
+Gate: max|a-b| / max|b| < 1e-4 against the plain version on the same card
+tensors (f32 summation order only), and two launches give the same bits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from openpano_torch.ops import windows
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(seed, dev, S=5, H=60, W=90, K=64, R=8, B=None):
+    rng = np.random.default_rng(seed)
+    lead = () if B is None else (B,)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return dict(
+        mag=t(rng.uniform(0, 1, lead + (S, H, W)).astype(np.float32)),
+        ort=t(rng.uniform(0, 2 * np.pi, lead + (S, H, W)).astype(np.float32)),
+        s=t(rng.integers(0, S, lead + (K,)).astype(np.int32)),
+        y=t(rng.integers(0, H, lead + (K,)).astype(np.int32)),
+        x=t(rng.integers(0, W, lead + (K,)).astype(np.int32)),
+        rad=t(rng.integers(1, R + 1, lead + (K,)).astype(np.float32)),
+        invden=t(rng.uniform(0.005, 0.1, lead + (K,)).astype(np.float32)),
+        hw=t(rng.uniform(1.5, 5.0, lead + (K,)).astype(np.float32)),
+        dirv=t(rng.uniform(0, 2 * np.pi, lead + (K,)).astype(np.float32)),
+        wh=t(np.stack([rng.integers(W // 2, W + 1, lead + (K,)),
+                       rng.integers(H // 2, H + 1, lead + (K,))], -1
+                      ).astype(np.float32)),
+        valid=t(rng.uniform(size=lead + (K,)) < 0.8),
+    )
+
+
+def _run(which, c, R):
+    if which == "ori":
+        return windows.orientation_histogram(
+            c["mag"], c["ort"], c["s"], c["y"], c["x"], c["rad"], c["invden"],
+            R, wh=c["wh"], valid=c["valid"])
+    return windows.descriptor_histogram(
+        c["mag"], c["ort"], c["s"], c["y"], c["x"], c["rad"], c["hw"],
+        c["dirv"], R, wh=c["wh"], valid=c["valid"])
+
+
+@pytest.mark.parametrize("which,R,B", [("ori", 8, None), ("ori", 8, 3),
+                                       ("desc", 19, None), ("desc", 16, 3)])
+def test_kernel_matches_plain_on_card(card, which, R, B):
+    c = _case(11, card, R=R, B=B)
+    wrapper = (windows.orientation_histogram if which == "ori"
+               else windows.descriptor_histogram)
+    before = wrapper.launches
+    a, b = _run(which, c, R), _run(which, c, R)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2      # one launch per call, batch folded
+    want = _run(which, {k: v.cpu() for k, v in c.items()}, R)
+    assert torch.equal(a, b)
+    got = a.cpu().double()
+    err = (got - want.double()).abs().max() / want.abs().max().clamp(min=1e-6)
+    assert float(err) < TOL
+    assert (got[~c["valid"].cpu()] == 0).all()

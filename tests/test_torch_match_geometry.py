@@ -1,0 +1,277 @@
+"""Port parity: matching, DLT, homography gates, RANSAC, render plan, blend.
+
+Same numpy inputs through the JAX package (its CPU path) and the port
+(device="cpu").  Tolerances: match indices equal; RANSAC on the same
+threefry draws gives equal inlier sets and inlier coordinates, and affines
+within a relative error of 1e-5; host-side planning (numpy in both) equal;
+the blended canvas within 1e-4.
+
+The two float tolerances are set by rounding, not by the algorithm: XLA:CPU
+contracts a multiply feeding an add into one fused multiply-add (one
+rounding), where PyTorch rounds the product and the sum apart.  In the
+refit's unrolled Cholesky that moves the affine by 1.7e-6 relative on these
+inputs; in the blend's inverse map it moves sample coordinates by ulps
+(~1e-5 px), which is ~1e-4 of colour at a hard texture edge.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import openpano_tpu  # noqa: F401  (x64 on, as the JAX package runs)
+from openpano_tpu.config import Config as JConfig
+from openpano_tpu.geometry import dlt as jdlt, homography as jhom
+from openpano_tpu.geometry import polygon as jpoly, ransac as jransac
+from openpano_tpu.match import matcher as jmatch
+from openpano_tpu.stitch import render as jrender, stitcher as jstitcher
+from openpano_torch.compat import key_from_numpy
+from openpano_torch.config import Config
+from openpano_torch.geometry import dlt as tdlt, homography as thom
+from openpano_torch.geometry import polygon as tpoly, ransac as transac
+from openpano_torch.match import matcher as tmatch
+from openpano_torch.stitch import render as trender, stitcher as tstitcher
+from openpano_torch.synth import procedural_scene_large
+
+CAPS = dict(MAX_MATCHES_PER_PAIR=128, RANSAC_ITERATIONS=300)
+JCFG = JConfig(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True, **CAPS)
+TCFG = Config(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True, **CAPS)
+W, H = 320.0, 240.0
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _features(seed, n=4, K=160, shift=150.0, outliers=0.3):
+    """n images whose keypoints follow a drifting translation + slight
+    affine; a share of each image's keypoints has no counterpart.
+    Returns pos [n,K,2] f32 (half-shifted), desc [n,K,128], valid [n,K]."""
+    rng = np.random.default_rng(seed)
+    world = rng.uniform([-W / 2, -H / 2], [W / 2 + shift * n, H / 2],
+                        (600, 2))
+    wdesc = rng.uniform(0, 1, (600, 128)) ** 3
+    pos = np.zeros((n, K, 2), np.float32)
+    desc = np.zeros((n, K, 128), np.float32)
+    valid = np.zeros((n, K), bool)
+    for i in range(n):
+        A = np.array([[1.0 + 0.01 * i, 0.005], [-0.004, 1.0]])
+        p = (world - [shift * i, 0]) @ A.T
+        inside = np.nonzero((np.abs(p[:, 0]) < W / 2 - 1)
+                            & (np.abs(p[:, 1]) < H / 2 - 1))[0]
+        take = inside[: K - 7 * i]
+        cnt = len(take)
+        d = wdesc[take] + rng.normal(0, 0.01, (cnt, 128)) ** 2
+        junk = rng.uniform(size=cnt) < outliers
+        d[junk] = rng.uniform(0, 1, (junk.sum(), 128)) ** 3
+        pos[i, :cnt] = p[take] + rng.normal(0, 0.3, (cnt, 2))
+        desc[i, :cnt] = 512 * np.sqrt(d / d.sum(1, keepdims=True))
+        valid[i, :cnt] = True
+    return pos, desc, valid
+
+
+@pytest.fixture(scope="module")
+def feats():
+    return _features(0)
+
+
+@pytest.fixture(scope="module")
+def ring(feats):
+    pos, desc, valid = feats
+    jm = jmatch.match_ring_pairs(jnp.asarray(desc), jnp.asarray(valid), JCFG)
+    tm = tmatch.match_ring_pairs(_t(desc), _t(valid), TCFG)
+    return jm, tm
+
+
+def test_match_ring_indices_equal(ring):
+    jm, tm = ring
+    np.testing.assert_array_equal(tm.count.numpy(), np.asarray(jm.count))
+    np.testing.assert_array_equal(tm.valid.numpy(), np.asarray(jm.valid))
+    np.testing.assert_array_equal(tm.idx.numpy(), np.asarray(jm.idx))
+    assert (np.asarray(jm.count)[:-1] >= 20).all()
+
+
+def test_match_pair_and_all_pairs_equal(feats):
+    pos, desc, valid = feats
+    jm = jmatch.match_pair(jnp.asarray(desc[1]), jnp.asarray(valid[1]),
+                           jnp.asarray(desc[2]), jnp.asarray(valid[2]), JCFG)
+    tm = tmatch.match_pair(_t(desc[1]), _t(valid[1]), _t(desc[2]),
+                           _t(valid[2]), TCFG)
+    np.testing.assert_array_equal(tm.idx[0].numpy(), np.asarray(jm.idx))
+    assert int(tm.count[0]) == int(jm.count) > 0
+    ja = jmatch.match_all_pairs(jnp.asarray(desc), jnp.asarray(valid), JCFG)
+    ta = tmatch.match_all_pairs(_t(desc), _t(valid), TCFG)
+    assert tmatch.pair_indices(5) == jmatch.pair_indices(5)
+    np.testing.assert_array_equal(ta.idx.numpy(), np.asarray(ja.idx))
+    np.testing.assert_array_equal(ta.count.numpy(), np.asarray(ja.count))
+
+
+def test_ring_chunking_is_invisible(feats, monkeypatch):
+    """The 1.5 GiB chunk rule only splits the pair batch."""
+    pos, desc, valid = feats
+    whole = tmatch.match_ring_pairs(_t(desc), _t(valid), TCFG)
+    parts = tmatch._match_index_pairs(_t(desc), _t(valid), [0, 1, 2, 3],
+                                      [1, 2, 3, 0], TCFG, chunk=1)
+    for a, b in zip(whole, parts):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_normalized_dlt_matches(affine):
+    rng = np.random.default_rng(11)
+    p2 = rng.uniform(-150, 150, (5, 40, 2)).astype(np.float32)
+    Ht = np.array([[1.02, 0.01, 130.0], [-0.02, 0.99, 4.0],
+                   [1e-5 * (not affine), 0.0, 1.0]])
+    q = np.concatenate([p2, np.ones((5, 40, 1), np.float32)], -1) @ Ht.T
+    p1 = (q[..., :2] / q[..., 2:]).astype(np.float32)
+    p1 += rng.normal(0, 0.2, p1.shape).astype(np.float32)
+    w = (rng.uniform(size=(5, 40)) < 0.7).astype(np.float32)
+    jh = jdlt.normalized_transform(jnp.asarray(p1), jnp.asarray(p2),
+                                   jnp.asarray(w), affine)
+    th = tdlt.normalized_transform(_t(p1), _t(p2), _t(w), affine)
+    assert _rel(th, jh) < 1e-5
+    A = rng.normal(size=(7, 8, 8))
+    A = A @ A.transpose(0, 2, 1) + 8 * np.eye(8)
+    b = rng.normal(size=(7, 8))
+    x = tdlt._chol_solve_small(_t(A), _t(b)).numpy()
+    np.testing.assert_allclose(x, np.linalg.solve(A, b[..., None])[..., 0],
+                               rtol=1e-10, atol=1e-12)
+
+
+def test_homography_gates_match():
+    rng = np.random.default_rng(3)
+    Hs = np.eye(3)[None] + rng.normal(0, 0.05, (64, 3, 3))
+    Hs[:, 2, :2] *= 0.05
+    Hs[:, 0, 2] = rng.uniform(-200, 200, 64)
+    Hs = Hs.astype(np.float32)
+    wh1 = np.array([W, H], np.float32)
+    pts = rng.uniform(-200, 200, (64, 50, 2)).astype(np.float32)
+    np.testing.assert_array_equal(thom.health(_t(Hs)).numpy(),
+                                  np.asarray(jhom.health(jnp.asarray(Hs))))
+    ti, tok = thom.homo_inverse(_t(Hs))
+    ji, jok = jhom.homo_inverse(jnp.asarray(Hs))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert _rel(ti, ji) < 1e-6
+    assert _rel(thom.det3(_t(Hs)), jhom.det3(jnp.asarray(Hs))) < 1e-6
+    tm = thom.overlap_mask_in1(_t(Hs), ti, _t(wh1), _t(wh1), _t(pts))
+    jm = jhom.overlap_mask_in1(jnp.asarray(Hs), ji, jnp.asarray(wh1),
+                               jnp.asarray(wh1), jnp.asarray(pts))
+    assert (tm.numpy() != np.asarray(jm)).mean() < 1e-3
+    whb = np.broadcast_to(wh1, (64, 2))
+    ta = thom.overlap_area_fraction(_t(Hs), _t(whb), _t(whb), 64)
+    ja = jhom.overlap_area_fraction(jnp.asarray(Hs), jnp.asarray(whb),
+                                    jnp.asarray(whb), 64)
+    assert np.abs(ta.numpy() - np.asarray(ja)).max() <= 2.0 / 64 ** 2
+
+
+@pytest.mark.parametrize("M", [128, 16])
+def test_ransac_same_draws_same_affines(feats, M):
+    """M=16 leaves more matches than the buffer holds: the count is not
+    clipped, so draws past the buffer clamp to its last row, as the JAX
+    package's gather does."""
+    pos, desc, valid = feats
+    jcfg, tcfg = (c.replace(MAX_MATCHES_PER_PAIR=M) for c in (JCFG, TCFG))
+    jm = jmatch.match_ring_pairs(jnp.asarray(desc), jnp.asarray(valid), jcfg)
+    tm = tmatch.match_ring_pairs(_t(desc), _t(valid), tcfg)
+    n = pos.shape[0]
+    ii, jj = list(range(n)), [(i + 1) % n for i in range(n)]
+    whs = np.array([[W, H]] * n, np.float32)
+    jkey = jax.random.PRNGKey(3)
+    jkeys = jax.random.split(jkey, n)
+    ji = jransac.estimate_transform_batch(
+        jm, jnp.asarray(pos), jnp.asarray(valid), jnp.asarray(whs),
+        jnp.asarray(ii), jnp.asarray(jj), jkey, jcfg, True, keys=jkeys)
+    ti = transac.estimate_transform_batch(
+        tm, _t(pos), _t(valid), _t(whs), ii, jj,
+        key_from_numpy(np.asarray(jkey)), tcfg, True)
+    ok = np.asarray(ji.confidence) > 0
+    assert ok[:-1].all()
+    assert (np.asarray(jm.count)[:-1] > M).any() == (M == 16)
+    np.testing.assert_array_equal(ti.valid.numpy(), np.asarray(ji.valid))
+    np.testing.assert_array_equal(ti.count.numpy(), np.asarray(ji.count))
+    assert _rel(ti.homo.numpy()[ok], np.asarray(ji.homo)[ok]) < 1e-5
+    assert _rel(ti.confidence, ji.confidence) < 1e-6
+    assert _rel(ti.to_pos, ji.to_pos) == 0.0
+    assert _rel(ti.from_pos, ji.from_pos) == 0.0
+
+
+def test_convex_hull_matches():
+    rng = np.random.default_rng(9)
+    for n in (1, 2, 3, 50, 400):
+        p = rng.normal(size=(n, 2))
+        np.testing.assert_array_equal(tpoly.convex_hull(p),
+                                      jpoly.convex_hull(p))
+
+
+def _chain(n, step=150.0):
+    homos = np.stack([np.array([[1.0, 0.0, step * (k - n // 2)],
+                                [0.0, 1.0, 3.0 * (k % 2)],
+                                [0.0, 0.0, 1.0]]) for k in range(n)])
+    return homos / (0.5 * (W + H))
+
+
+@pytest.mark.parametrize("n", [3, 9])
+def test_render_plan_and_jobs_match(n):
+    homos, whs = _chain(n), np.array([[W, H]] * n)
+    tp = trender.plan_render(homos, whs, n // 2, "flat", 8000)
+    jp = jrender.plan_render(homos, whs, n // 2, "flat", 8000)
+    for f in tp._fields:
+        a, b = getattr(tp, f), getattr(jp, f)
+        if f == "hulls":
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+        elif isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+    for slabs in (True, False):
+        tj = trender._tile_jobs(tp, 4, item_slabs=slabs)
+        jj = jrender._tile_jobs(jp, 4, item_slabs=slabs)
+        assert tj[:6] == jj[:6]
+        for tb, jb in zip(tj[6], jj[6]):
+            for x, y in zip(tb, jb):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_blend_linear_matches():
+    n = 5
+    imgs = np.stack([procedural_scene_large(int(H), int(W), seed=s)
+                     for s in range(n)])
+    homos = _chain(n)
+    homos[:, 0, 1] = 0.002                     # a slight shear resamples
+    whs = np.array([[W, H]] * n)
+    plan = trender.plan_render(homos, whs, n // 2, "flat", 500)
+    got = trender.blend_linear(_t(imgs), plan, ordered=True).numpy()
+    want = np.asarray(jrender.blend_linear(jnp.asarray(imgs), plan, True))
+    assert got.shape == want.shape == (plan.out_h, plan.out_w, 3)
+    np.testing.assert_array_equal(got[..., 0] >= 0, want[..., 0] >= 0)
+    assert np.abs(got - want).max() < 1e-4
+    tu, tv = trender.f32_to_u8(_t(want))
+    ju, jv = jstitcher._f32_to_u8(jnp.asarray(want))
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_linear_chain_matches():
+    n = 5
+    g_t, g_j = tstitcher.PairwiseGraph(n, 4), jstitcher.PairwiseGraph(n, 4)
+    rng = np.random.default_rng(4)
+    for i in range(n - 1):
+        Hp = np.array([[1.0, 0.01 * i, 150.0], [0.0, 1.0, rng.normal()],
+                       [0.0, 0.0, 1.0]], np.float32)
+        args = (i, i + 1, 0.5, Hp, np.zeros((4, 2)), np.zeros((4, 2)),
+                np.ones(4, bool))
+        assert g_t.fill_pair(*args) and g_j.fill_pair(*args)
+    whs = np.array([[W, H]] * n)
+    np.testing.assert_array_equal(
+        tstitcher._build_linear_simple(g_t, n, n // 2, whs),
+        jstitcher._build_linear_simple(g_j, n, n // 2, whs, JCFG))
+    g_t.conf[1, 2] = g_t.conf[2, 1] = 0
+    with pytest.raises(RuntimeError):
+        tstitcher._build_linear_simple(g_t, n, n // 2, whs)
