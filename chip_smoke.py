@@ -6,20 +6,40 @@
 Phases, each fatal on failure:
   1. environment: torch / CUDA versions, the card's name and power limit;
   2. build: the package's CUDA source (one file, one nvcc run);
-  3. kernels: each kernel on the inputs the main path gives it (captured from
-     a feature batch of the strip below) and on a seeded random case of the
-     same shapes, held against its plain PyTorch version (max|a-b| / max|b|
-     < 1e-4) and run twice for identical bits; median times by CUDA events
-     of the launch alone (arguments cast beforehand), the plain version's
-     time, and the least time the card could take;
-  4. reference: a small strip stitched on the card and on the CPU (the plain
-     versions, which the tests hold to the JAX package) must agree;
-  5. main path: stitch_images in TRANS mode over 38 uint8 views of 1300x867
-     (the headline image count and size), with every kernel's launch count
-     read around this run alone; every adjacent pair must connect, the
-     canvas must have the expected size, each pairwise transform must
-     recover its views' true offset and the chain must place every view
-     within CHAIN_LIMIT_PX of it.
+  3. inputs: the headline set — 38 uint8 views of 1300x867 of a camera
+     yawing through a 336 degree sweep (40 degree field of view, 80%
+     overlap) over ``procedural_scene_large``, shuffled: the shape of the
+     JAX package's bench.py, on procedural data — and a 38-view
+     translated strip for TRANS mode;
+  4. kernels: K1 and K2 on the inputs the first feature batch of each path
+     gives them (the headline's and the TRANS strip's, whose caps differ)
+     and on a seeded random case of the same shapes, held against their
+     plain versions (max|a-b| / max|b| < 1e-4), timed at the headline's;
+     K3 on the headline batch's planes and descriptor keypoints (WR =
+     slab_rows(19) = 56) and on a random case with odd plane sizes,
+     keypoints on every border and planes out of range, held bit-equal to
+     its plain version; each run
+     twice for identical bits; median times by CUDA events of the launch
+     alone (arguments cast beforehand), the plain version's time, the
+     library call's where one PyTorch call computes the same function, and
+     the least time the card could take;
+  5. references: a 4-view strip (TRANS) and 5 rotating views (the default
+     Config) stitched on the card and on the CPU (the plain versions, which
+     the tests hold to the JAX package) must agree; the bundle adjustment
+     of the latter on the card (BA_ON_HOST=False) and on the host must
+     agree, and two card runs bit for bit, as must two runs of the card's
+     normal-equation assembly at 5, 38 (the headline's) and 100 cameras;
+  6. TRANS path: stitch_images in TRANS mode over the strip, with every
+     kernel's launch count read around this run alone; every adjacent pair
+     must connect, the canvas must have the expected size, each pairwise
+     transform must recover its views' true offset and the chain must
+     place every view within CHAIN_LIMIT_PX of it;
+  7. main path: stitch_images with the default Config (the caps of
+     bench.py) over the headline set, counts read around this run alone:
+     every pair adjacent in the sweep must connect, the canvas must be
+     within 5% of the size the true focal and sweep give, and the cameras
+     must pass bench.py's quality gate (mean reprojection error of the
+     adjacent pairs against the true homographies under 2.5 px).
 The second-to-last line is the kernel report as JSON; the last line is the
 device record.
 """
@@ -39,13 +59,21 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from openpano_torch import Config, stitch_images  # noqa: E402
 from openpano_torch import _build  # noqa: E402
+from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
+from openpano_torch.camera.estimator import estimate_cameras  # noqa: E402
 from openpano_torch.ops import windows  # noqa: E402
+from openpano_torch.stitch.render import plan_render  # noqa: E402
 from openpano_torch.stitch.stitcherbase import FEATURE_BATCH, \
     compute_features  # noqa: E402
-from openpano_torch.synth import strip_views  # noqa: E402
-from openpano_torch.utils import timer  # noqa: E402
+from openpano_torch.synth import gt_pair_homography, \
+    procedural_scene_large, render_views, strip_views  # noqa: E402
+from openpano_torch.utils import prng, timer  # noqa: E402
 
 N_VIEWS, VIEW_W, VIEW_H, OVERLAP = 38, 1300, 867, 0.4
+# the headline sweep of bench.py (photo scene there, procedural here)
+HFOV, SWEEP_OVERLAP, JITTER, SCENE = 40, 0.8, 0.05, (1400, 11000)
+HEADLINE = dict(MAX_KP_PER_IMAGE=2048, MAX_MATCHES_PER_PAIR=1024)
+REPROJ_LIMIT_PX = 2.5           # bench.py:113
 GATE = 1e-4                     # max|a-b| / max|b|, kernel vs plain
 # the chained placement on this strip is off by 24.98 px at most (H100 runs
 # of this script); the limit leaves twice that
@@ -61,10 +89,13 @@ TRANS = dict(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True)
 # name, wrapper (holds the launch count), kernel, plain version, TPU kernel
 KERNELS = (
     ("orientation_histogram", windows.orientation_histogram, "ori_hist_cuda",
-     windows.ori_hist_plain, "openpano_tpu/ops/windows.py:237"),
+     windows.ori_hist_plain, "openpano_tpu/ops/windows.py:238"),
     ("descriptor_histogram", windows.descriptor_histogram, "desc_hist_cuda",
-     windows.desc_hist_plain, "openpano_tpu/ops/windows.py:458"),
+     windows.desc_hist_plain, "openpano_tpu/ops/windows.py:459"),
 )
+SLAB = ("gather_window_slabs", windows.gather_window_slabs,
+        "openpano_tpu/ops/windows.py:93")
+WRAPPERS = [w for _, w, _, _, _ in KERNELS] + [SLAB[1]]
 # operations each in-window pixel needs: K1 weight (r^2, exp, product),
 # bin (scale, add, floor, wrap) and the add into the bin; K2 the rotation
 # and division by the bin width, three bin coordinates, the weight, the
@@ -179,26 +210,35 @@ def kernel_typed(args) -> tuple:
     return tuple(typed(a) for a in args)
 
 
-def kernel_phase(captured: dict) -> list[dict]:
+def kernel_phase(batches: dict) -> list[dict]:
+    """K1 and K2 against their plain versions on the inputs of a feature
+    batch of each path (``batches``: path label -> captured arguments) and
+    on a random case of the same shapes; timed at the first path's."""
     report = []
     for name, wrapper, cuda_attr, plain, replaces in KERNELS:
         cuda = getattr(windows, cuda_attr)
-        check(name in captured, f"the main path never reached {name}")
-        real = captured[name]
         errs = []
-        for case, args in (("path", real), ("random", random_case(name, real))):
-            a = cuda(*args)
-            b = cuda(*args)
-            p = plain(*args)
-            torch.cuda.synchronize()
-            check(torch.equal(a, b), f"{name} ({case}): two runs differ")
-            err = float((a - p).abs().max())
-            rel = err / max(float(p.abs().max()), 1e-30)
-            print(f"{name} [{case}] K={args[2].shape[0]} "
-                  f"planes={tuple(args[0].shape)} max_abs_err={err:.3e} "
-                  f"rel={rel:.3e} bit-identical repeat=True")
-            check(rel < GATE, f"{name} ({case}): rel err {rel:.3e} >= {GATE}")
-            errs.append(err)
+        for label, captured in batches.items():
+            check(name in captured, f"the {label} path never reached {name}")
+            real = captured[name]
+            for case, args in (("path", real),
+                               ("random", random_case(name, real))):
+                a = cuda(*args)
+                b = cuda(*args)
+                p = plain(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(a, b), f"{name} ({label} {case}): two runs "
+                      "differ")
+                err = float((a - p).abs().max())
+                rel = err / max(float(p.abs().max()), 1e-30)
+                print(f"{name} [{label} {case}] K={args[2].shape[0]} "
+                      f"planes={tuple(args[0].shape)} max_abs_err={err:.3e} "
+                      f"rel={rel:.3e} bit-identical repeat=True")
+                check(rel < GATE, f"{name} ({label} {case}): rel err "
+                      f"{rel:.3e} >= {GATE}")
+                if case == "path":
+                    errs.append(err)
+        real = next(iter(batches.values()))[name]
         typed = kernel_typed(real)
         ms = median_ms(lambda: cuda(*typed), 50)
         plain_ms = median_ms(lambda: plain(*real), 5)
@@ -211,10 +251,10 @@ def kernel_phase(captured: dict) -> list[dict]:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
         report.append(dict(
             name=name, route="cuda", source="openpano_torch/csrc/windows.cu",
-            replaces=replaces, launches=None, max_abs_err=errs[0],
+            replaces=replaces, launches=None, max_abs_err=max(errs),
             ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None))
+            library_ms=None, on_path=True))
         print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
               f"{report[-1]['bound_ms']:.4f} ms by {report[-1]['bound_by']} "
               f"({n_active}/{K} keypoints active, {distinct} distinct window "
@@ -222,8 +262,8 @@ def kernel_phase(captured: dict) -> list[dict]:
     return report
 
 
-def capture_main_path_inputs(u8: np.ndarray, cfg: Config) -> dict:
-    """Run one feature batch of the main path with recorders on the kernel
+def capture_path_inputs(u8: np.ndarray, cfg: Config) -> dict:
+    """Run the first feature batch of a path with recorders on the kernel
     launchers; keep each kernel's first argument tuple."""
     captured = {}
     saved = {attr: getattr(windows, attr) for _, _, attr, _, _ in KERNELS}
@@ -240,11 +280,77 @@ def capture_main_path_inputs(u8: np.ndarray, cfg: Config) -> dict:
     return captured
 
 
-def reference_phase():
-    """A 4-view strip on the card and on the CPU must agree."""
-    cfg = Config(**TRANS, **SMALL)
-    views = np.round(strip_views(4, 320, 240, overlap=0.5, seed=0) * 255
-                     ).astype(np.uint8)
+
+def slab_case(dev):
+    """Seeded random K3 case: planes of sizes no multiple of 8 or 128,
+    keypoints on every border and past it, planes out of range."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    S, H, W, K = 6, 203, 397, 4096
+    a = torch.rand(S, H, W, generator=g, device=dev)
+    b = torch.rand(S, H, W, generator=g, device=dev)
+    ri = lambda lo, hi: torch.randint(lo, hi, (K,), generator=g, device=dev,
+                                      dtype=torch.int32)
+    s, y, x = ri(-2, S + 2), ri(-8, H + 8), ri(-8, W + 8)
+    y[:4] = torch.tensor([0, H - 1, 0, H - 1], dtype=torch.int32)
+    x[:4] = torch.tensor([0, 0, W - 1, W - 1], dtype=torch.int32)
+    return a, b, s, y, x
+
+
+def slab_phase(desc_args) -> dict:
+    """K3 against its plain version, bit for bit, on the planes and the
+    descriptor keypoints of the captured feature batch and on a random
+    case; times of the kernel, the plain version and the one indexing call
+    that computes the same slabs from planes padded beforehand."""
+    name, _, replaces = SLAB
+    WR = windows.slab_rows(desc_args[-1])
+    real = tuple(v.contiguous() for v in desc_args[:2]) + tuple(
+        v.to(torch.int32).contiguous() for v in desc_args[2:5])
+    for case, args in (("path", real), ("random", slab_case(real[0].device))):
+        a1 = windows.win2_cuda(*args, WR)
+        a2 = windows.win2_cuda(*args, WR)
+        p = windows.win2_plain(*args, WR)
+        torch.cuda.synchronize()
+        for k in (0, 1):
+            check(torch.equal(a1[k], a2[k]), f"{name} ({case}): two runs differ")
+            check(torch.equal(a1[k], p[k]), f"{name} ({case}): differs from "
+                  "its plain version")
+        print(f"{name} [{case}] K={args[2].shape[0]} planes="
+              f"{tuple(args[0].shape)} WR={WR} bit-equal to plain, "
+              f"bit-identical repeat=True")
+    a, b, s, y, x = real
+    S, H, W = a.shape
+    K = s.shape[0]
+    ab = torch.stack([windows.pad_planes(a, WR), windows.pad_planes(b, WR)])
+    idx = windows.slab_index(S, H, W, s, y, x, WR)
+    lib = ab[:, idx[0], idx[1], idx[2]]
+    out = windows.win2_cuda(*real, WR)
+    check(torch.equal(lib[0], out[0]) and torch.equal(lib[1], out[1]),
+          f"{name}: the indexing call computes other slabs")
+    del lib, out
+    ms = median_ms(lambda: windows.win2_cuda(*real, WR), 50)
+    plain_ms = median_ms(lambda: windows.win2_plain(*real, WR), 10)
+    library_ms = median_ms(lambda: ab[:, idx[0], idx[1], idx[2]], 10)
+    # distinct in-plane pixels the slabs cover, read once from each plane
+    inb = (idx[1] < H) & (idx[2] < W)
+    flat = (idx[0] * H + idx[1].clamp(max=H - 1)) * W + idx[2].clamp(max=W - 1)
+    mark = torch.zeros(S * H * W, dtype=torch.bool, device=a.device)
+    mark[flat.expand(K, WR, windows.SLAB_LANES)[inb]] = True
+    distinct = int(mark.sum())
+    nbytes = distinct * 8 + K * 12 + 2 * K * WR * windows.SLAB_LANES * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+          f"(one indexing call) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"by bytes ({K} keypoints, WR={WR}, {distinct} distinct plane "
+          f"pixels, {nbytes} B)")
+    return dict(name=name, route="cuda", source="openpano_torch/csrc/windows.cu",
+                replaces=replaces, launches=None, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=library_ms, on_path=False)
+
+
+def compare_card_cpu(label: str, views: np.ndarray, cfg: Config):
+    """Stitch ``views`` on the card and on the CPU; the two must agree.
+    Returns the card run's info."""
     out = {}
     for dev in ("cuda", "cpu"):
         info = {}
@@ -252,92 +358,138 @@ def reference_phase():
                                       info_out=info)
         out[dev] = (canvas.astype(np.float64), valid, info)
     (gc, gv, gi), (cc, cv, ci) = out["cuda"], out["cpu"]
-    check(gc.shape == cc.shape, f"canvas {gc.shape} vs {cc.shape}")
+    check(gc.shape == cc.shape, f"{label}: canvas {gc.shape} vs {cc.shape}")
     kdiff = np.abs(gi["kpt_counts"] - ci["kpt_counts"]) / ci["kpt_counts"]
     pairs = lambda i: set(zip(*np.nonzero(np.triu(i["graph"].conf > 0, 1))))
     m = gv & cv
     a, b = gc[m] - gc[m].mean(), cc[m] - cc[m].mean()
     ncc = float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
     agree = float((gv == cv).mean())
-    print(f"reference: canvas {gc.shape[:2]}, keypoints card "
+    print(f"reference [{label}]: canvas {gc.shape[:2]}, keypoints card "
           f"{gi['kpt_counts'].tolist()} cpu {ci['kpt_counts'].tolist()}, "
           f"pairs {sorted(pairs(gi))}, valid agree {agree:.6f}, NCC {ncc:.6f}")
-    check(kdiff.max() <= 0.02, "keypoint counts differ by more than 2%")
-    check(pairs(gi) == pairs(ci) >= {(0, 1), (1, 2), (2, 3)},
-          "connected pairs differ")
-    check(agree >= 0.999 and ncc >= 0.999, "canvases disagree")
+    check(kdiff.max() <= 0.02, f"{label}: keypoint counts differ by >2%")
+    check(pairs(gi) == pairs(ci), f"{label}: connected pairs differ")
+    check(agree >= 0.999 and ncc >= 0.999, f"{label}: canvases disagree")
+    if "cams" in gi:
+        rel = np.abs(gi["cams"].focal / ci["cams"].focal - 1).max()
+        print(f"reference [{label}]: focal card "
+              f"{np.round(gi['cams'].focal, 3).tolist()} cpu "
+              f"{np.round(ci['cams'].focal, 3).tolist()} (max rel {rel:.2e}), "
+              f"LM iterations {gi['lm_iters']} / {ci['lm_iters']}, ba_rms_px "
+              f"{gi['ba_rms_px']:.6f} / {ci['ba_rms_px']:.6f}")
+        check(rel < 0.01, f"{label}: focals differ by 1% or more")
+    return gi
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("no CUDA device: this script measures the card", file=sys.stderr)
-        return 1
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
-    name = torch.cuda.get_device_name(0)
+def reference_phase():
+    """The TRANS strip and the default-Config rotating views on the card
+    and on the CPU; the bundle adjustment on the card and on the host."""
+    views = np.round(strip_views(4, 320, 240, overlap=0.5, seed=0) * 255
+                     ).astype(np.uint8)
+    gi = compare_card_cpu("TRANS strip", views, Config(**TRANS, **SMALL))
+    check(set(zip(*np.nonzero(np.triu(gi["graph"].conf > 0, 1))))
+          >= {(0, 1), (1, 2), (2, 3)}, "TRANS strip: adjacent pairs missing")
 
-    t0 = time.perf_counter()
-    lib = _build.build_cuda("windows")
-    print(f"build: {time.perf_counter() - t0:.2f} s {lib.name}")
+    rot, _ = render_views(procedural_scene_large(600, 2400, seed=0), 5,
+                          out_w=320, out_h=240, hfov_deg=32, overlap=0.5)
+    rot = np.round(rot[[2, 0, 4, 1, 3]] * 255).astype(np.uint8)
+    cfg = Config(**SMALL)
+    g = compare_card_cpu("default Config", rot, cfg)["graph"]
+    whs = np.repeat([[320.0, 240.0]], 5, 0)
+    args = (g.conf, g.homo, g.to_pos, g.from_pos, g.valid, whs)
+    runs = []
+    for on_host in (True, False, False):
+        st = {}
+        t0 = time.perf_counter()
+        cams = estimate_cameras(*args, cfg.replace(BA_ON_HOST=on_host),
+                                stats=st, device="cuda")
+        runs.append((cams, st, time.perf_counter() - t0))
+    (h, hs, ht), (c1, cs, ct), (c2, _, _) = runs
+    frel = float(np.abs(c1.focal / h.focal - 1).max())
+    rabs = float(np.abs(c1.R - h.R).max())
+    print(f"bundle adjustment: host {hs['lm_iters']} LM iterations "
+          f"{ht:.3f} s, card {cs['lm_iters']} LM iterations {ct:.3f} s; "
+          f"focal max rel diff {frel:.3e}, R max abs diff {rabs:.3e}")
+    check(frel < 1e-6 and rabs < 1e-6, "card and host cameras differ")
+    check(np.array_equal(c1.focal, c2.focal) and np.array_equal(c1.R, c2.R),
+          "two card runs of the bundle adjustment differ")
+    for n in (5, N_VIEWS, 100):
+        assembly_repeat(n)
 
+
+def assembly_repeat(n: int):
+    """The card's JtJ / Jtb assembly (an accumulating index_put_) on
+    seeded f64 blocks of every pair of n cameras: two runs bit-identical,
+    and equal to the CPU's slot-order sum up to rounding."""
+    g = torch.Generator().manual_seed(n)
+    a, b = np.triu_indices(n, 1)
+    P = a.size
+    J = torch.randn(P, 40, 12, generator=g, dtype=torch.float64) * 1e3
+    Bp = J.transpose(1, 2) @ J
+    bp = torch.randn(P, 12, generator=g, dtype=torch.float64) * 1e4
+    offs = torch.arange(6)
+    rows = torch.cat([torch.as_tensor(a)[:, None] * 6 + offs,
+                      torch.as_tensor(b)[:, None] * 6 + offs], 1)
+    cpu = assemble_scatter(Bp, bp, rows, n * 6)
+    args = (Bp.cuda(), bp.cuda(), rows.cuda(), n * 6)
+    r1, r2 = assemble_scatter(*args), assemble_scatter(*args)
+    same = all(torch.equal(x, y) for x, y in zip(r1, r2))
+    rel = max(float((x.cpu() - y).abs().max() / y.abs().max())
+              for x, y in zip(r1, cpu))
+    print(f"JtJ assembly on the card, {n} cameras, {P} pair slots: two runs "
+          f"bit-identical={same}, max rel diff from the CPU {rel:.3e}")
+    check(same, "two card runs of the JtJ assembly differ")
+    check(rel < 1e-12, "the card's JtJ assembly differs from the CPU's")
+
+
+def reset_counts():
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {n: w.launches for n, w in
+            [(n, w) for n, w, _, _, _ in KERNELS] + [SLAB[:2]]}
+
+
+def trans_path(u8: np.ndarray, xy: np.ndarray) -> dict:
+    """stitch_images in TRANS mode over the strip, with its gates."""
     cfg = Config(**TRANS)
-    t0 = time.perf_counter()
-    views, xy = strip_views(N_VIEWS, VIEW_W, VIEW_H, overlap=OVERLAP, seed=0,
-                            offsets=True)
-    u8 = np.round(views * 255).astype(np.uint8)
-    del views
-    print(f"inputs: {N_VIEWS} uint8 views {VIEW_W}x{VIEW_H}, overlap "
-          f"{OVERLAP} ({time.perf_counter() - t0:.1f} s to make)")
-
-    report = kernel_phase(capture_main_path_inputs(u8, cfg))
-    reference_phase()
-
-    for _, wrapper, _, _, _ in KERNELS:
-        wrapper.launches = 0
+    reset_counts()
     timer.reset()
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     info = {}
     canvas, valid = stitch_images(u8, cfg, output="u8", info_out=info)
     wall = time.perf_counter() - t0
-    launches = {n: w.launches for n, w, _, _, _ in KERNELS}
-    for entry in report:
-        entry["launches"] = launches[entry["name"]]
+    launches = read_counts()
     stages = {k: round(s, 4) for k, (_, s) in timer.totals().items()}
-    print(f"main path: {wall:.3f} s wall, {N_VIEWS / wall:.2f} img/s, "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"stages_s: {json.dumps(stages)}")
-    print(f"kernels launched: {json.dumps(launches)}")
-    check(all(v > 0 for v in launches.values()), "a kernel never launched")
+    print(f"TRANS path: {wall:.3f} s wall, {N_VIEWS / wall:.2f} img/s")
+    print(f"TRANS stages_s: {json.dumps(stages)}")
+    print(f"TRANS kernels launched: {json.dumps(launches)}")
+    check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
+          "TRANS: a kernel of the path never launched")
 
-    # the result: every adjacent pair connected, the canvas of the expected
-    # size, and each view placed where the texture put it
     conf = info["graph"].conf
     check(all(conf[i, i + 1] > 0 for i in range(N_VIEWS - 1)),
-          "an adjacent pair did not connect")
+          "TRANS: an adjacent pair did not connect")
     span = xy.max(0) - xy.min(0) + [VIEW_W, VIEW_H]
     scale = min(1.0, cfg.MAX_OUTPUT_SIZE / span.max())
-    print(f"canvas {canvas.shape[1]}x{canvas.shape[0]} (expected about "
-          f"{span[0] * scale:.0f}x{span[1] * scale:.0f}), valid fraction "
-          f"{valid.mean():.4f}, keypoints per view "
-          f"{int(info['kpt_counts'].min())}..{int(info['kpt_counts'].max())}")
+    print(f"TRANS canvas {canvas.shape[1]}x{canvas.shape[0]} (expected "
+          f"about {span[0] * scale:.0f}x{span[1] * scale:.0f}), valid "
+          f"fraction {valid.mean():.4f}")
     check(canvas.dtype == np.uint8 and canvas.shape[2] == 3,
-          "canvas is not u8 RGB")
+          "TRANS: canvas is not u8 RGB")
     check(abs(canvas.shape[1] - span[0] * scale) <= 0.01 * span[0] * scale,
-          "canvas width off")
+          "TRANS: canvas width off")
     check(abs(canvas.shape[0] - span[1] * scale) <= 0.05 * span[1] * scale,
-          "canvas height off")
-    check(valid.mean() > 0.8, "canvas mostly empty")
-    # placement against the true offsets, as the error of the views' corners:
-    # each pairwise affine on its own, and the chain outward from the middle
-    # view, where TRANS mode compounds the pairs' small scale and shear
-    # errors over up to N/2 hops
+          "TRANS: canvas height off")
+    check(valid.mean() > 0.8, "TRANS: canvas mostly empty")
+    # placement against the true offsets, as the error of the views'
+    # corners: each pairwise affine on its own, and the chain outward from
+    # the middle view, where TRANS mode compounds the pairs' small scale and
+    # shear errors over up to N/2 hops
     corners = np.array([[-VIEW_W / 2, -VIEW_H / 2, 1], [VIEW_W / 2, -VIEW_H / 2, 1],
                         [-VIEW_W / 2, VIEW_H / 2, 1], [VIEW_W / 2, VIEW_H / 2, 1]])
 
@@ -351,15 +503,162 @@ def main() -> int:
     mid = N_VIEWS >> 1
     chain_err = max(corner_err(info["homos"][k] * [[f], [f], [1]],
                                xy[k] - xy[mid]) for k in range(N_VIEWS))
-    print(f"placement: pairwise corner error median {np.median(pair_err):.3f} "
-          f"max {max(pair_err):.3f} px; chained from the middle view max "
-          f"{chain_err:.3f} px over a {span[0]} px strip")
-    check(max(pair_err) < 6.0, "a pairwise transform is off")
-    check(chain_err < CHAIN_LIMIT_PX, "views misplaced along the chain")
+    print(f"TRANS placement: pairwise corner error median "
+          f"{np.median(pair_err):.3f} max {max(pair_err):.3f} px; chained "
+          f"from the middle view max {chain_err:.3f} px over a {span[0]} px "
+          f"strip")
+    check(max(pair_err) < 6.0, "TRANS: a pairwise transform is off")
+    check(chain_err < CHAIN_LIMIT_PX, "TRANS: views misplaced along the chain")
+    return launches
+
+
+def headline_inputs():
+    """The shuffled uint8 headline views, the truth with its yaws in the
+    shuffled order, and the permutation."""
+    views, truth = render_views(
+        procedural_scene_large(*SCENE, seed=0), N_VIEWS, out_w=VIEW_W,
+        out_h=VIEW_H, hfov_deg=HFOV, overlap=SWEEP_OVERLAP, jitter=JITTER,
+        seed=5)
+    perm = np.random.default_rng(0).permutation(N_VIEWS)
+    u8 = np.round(views[perm] * 255.0).astype(np.uint8)
+    return u8, dict(truth, yaws=truth["yaws"][perm]), perm
+
+
+def expected_canvas(truth: dict, cfg: Config) -> tuple[int, int]:
+    """(w, h) of the spherical canvas the true cameras give: yaw rotations
+    about the mean viewing direction (where ``straighten`` puts the frame),
+    the true focal, the middle view as the resolution reference, the
+    MAX_OUTPUT_SIZE cap."""
+    f, yaws = truth["focal_px"], truth["yaws"]
+    centre = np.arctan2(np.sin(yaws).sum(), np.cos(yaws).sum())
+    Kinv = np.linalg.inv(np.diag([f, f, 1.0]))
+    homos = []
+    for yaw in yaws - centre:
+        c, s = np.cos(yaw), np.sin(yaw)
+        homos.append(np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]) @ Kinv)
+    whs = np.repeat([[float(VIEW_W), float(VIEW_H)]], N_VIEWS, 0)
+    plan = plan_render(np.stack(homos), whs, N_VIEWS >> 1, "spherical",
+                       cfg.MAX_OUTPUT_SIZE)
+    return plan.out_w, plan.out_h
+
+
+def camera_error(homos: np.ndarray, truth: dict, perm: np.ndarray) -> float:
+    """bench.py:91-113: mean reprojection error, over the pairs adjacent in
+    the sweep, of the recovered pairwise homography against the true one,
+    on a grid over the overlap."""
+    gx, gy = np.meshgrid(np.linspace(-VIEW_W * 0.45, VIEW_W * 0.05, 9),
+                         np.linspace(-VIEW_H * 0.4, VIEW_H * 0.4, 7))
+    grid = np.stack([gx.ravel(), gy.ravel(), np.ones(gx.size)], 1)
+    inv_perm = np.argsort(perm)
+    errs = []
+    for orig in range(N_VIEWS - 1):
+        i, j = inv_perm[orig], inv_perm[orig + 1]
+        H_est = np.linalg.inv(homos[i]) @ homos[j]
+        H_gt = gt_pair_homography(truth, i, j, VIEW_W, VIEW_H)
+        pe, pg = grid @ H_est.T, grid @ H_gt.T
+        errs.append(np.linalg.norm(pe[:, :2] / pe[:, 2:3]
+                                   - pg[:, :2] / pg[:, 2:3], axis=1).mean())
+    return float(np.mean(errs))
+
+
+def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
+    """stitch_images with the default Config over the headline set."""
+    cfg = Config(**HEADLINE)
+    key = prng.key((0, 1), "cuda")                   # PRNGKey(1)
+    reset_counts()
+    timer.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = {}
+    canvas, valid = stitch_images(u8, cfg, key=key, output="u8",
+                                  info_out=info)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    stages = {k: round(s, 4) for k, (_, s) in timer.totals().items()}
+    print(f"main path: {wall:.3f} s wall, {N_VIEWS / wall:.2f} img/s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"stages_s: {json.dumps(stages)}")
+    print(f"bundle adjustment: {info['lm_iters']} LM iterations in "
+          f"{info['lm_time_s']:.3f} s, ba_rms_px {info['ba_rms_px']:.4f} over "
+          f"{info['ba_pairs']} pairs, {info['ba_points']} points; "
+          f"{info['connected_pairs']} connected pairs, "
+          f"{info['total_inliers']} inliers")
+    print(f"kernels launched: {json.dumps(launches)}")
+    check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
+          "a kernel of the main path never launched")
+
+    inv_perm = np.argsort(perm)
+    conf = info["graph"].conf
+    check(all(conf[inv_perm[k], inv_perm[k + 1]] > 0
+              for k in range(N_VIEWS - 1)),
+          "a pair adjacent in the sweep did not connect")
+    want_w, want_h = expected_canvas(truth, cfg)
+    reproj = camera_error(info["homos"], truth, perm)
+    focal = info["cams"].focal
+    print(f"canvas {canvas.shape[1]}x{canvas.shape[0]} (expected {want_w}x"
+          f"{want_h}), valid fraction {valid.mean():.4f}, keypoints per view "
+          f"{int(info['kpt_counts'].min())}..{int(info['kpt_counts'].max())}, "
+          f"focal {focal.min():.2f}..{focal.max():.2f} (true "
+          f"{truth['focal_px']:.2f}), mean reprojection error of adjacent "
+          f"pairs {reproj:.4f} px")
+    check(canvas.dtype == np.uint8 and canvas.shape[2] == 3,
+          "canvas is not u8 RGB")
+    check(abs(canvas.shape[1] - want_w) <= 0.05 * want_w, "canvas width off")
+    check(abs(canvas.shape[0] - want_h) <= 0.05 * want_h, "canvas height off")
+    check(valid.mean() > 0.3, "canvas mostly empty")
+    check(reproj < REPROJ_LIMIT_PX, f"camera quality gate: {reproj:.3f} px")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: this script measures the card", file=sys.stderr)
+        return 1
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    name = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    lib = _build.build_cuda("windows")
+    print(f"build: {time.perf_counter() - t0:.2f} s {lib.name}")
+
+    t0 = time.perf_counter()
+    u8, truth, perm = headline_inputs()
+    views, xy = strip_views(N_VIEWS, VIEW_W, VIEW_H, overlap=OVERLAP, seed=0,
+                            offsets=True)
+    strip = np.round(views * 255).astype(np.uint8)
+    del views
+    print(f"inputs: {N_VIEWS} uint8 views {VIEW_W}x{VIEW_H} of a "
+          f"{np.degrees(truth['yaws'].max() - truth['yaws'].min()) + HFOV:.1f}"
+          f" degree sweep (focal {truth['focal_px']:.2f} px), and a "
+          f"{N_VIEWS}-view strip at overlap {OVERLAP} "
+          f"({time.perf_counter() - t0:.1f} s to make)")
+
+    batches = {"main": capture_path_inputs(u8, Config(**HEADLINE)),
+               "TRANS": capture_path_inputs(strip, Config(**TRANS))}
+    report = kernel_phase(batches)
+    report.append(slab_phase(batches["main"]["descriptor_histogram"]))
+    del batches
+    reference_phase()
+    trans_launches = trans_path(strip, xy)
+    launches = main_path(u8, truth, perm)
+    for entry in report:
+        entry["launches"] = launches[entry["name"]]
+        entry["trans_launches"] = trans_launches[entry["name"]]
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": report}))
+    # the cards the run used: those on which it allocated memory
+    used = [i for i in range(torch.cuda.device_count())
+            if torch.cuda.memory_stats(i).get("allocated_bytes.all.peak", 0)]
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": name, "count": len(used)}}))
     return 0
 
 

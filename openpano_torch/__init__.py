@@ -3,16 +3,18 @@ kernels for Hopper (sm_90a).
 
 A port of ``openpano_tpu`` (the JAX reference, which stays unchanged beside
 it).  This package imports neither JAX nor anything of ``openpano_tpu``.  It
-runs the TRANS mode of the general stitcher — SIFT features, ordered 2-NN
-matching, affine RANSAC, homography chaining, flat projection and the
-linear blend — on the card; the CPU runs the kernels' plain versions when
-asked for (``device="cpu"``), which is what the parity tests do.
+runs the general stitcher in every mode but CYLINDER — the default
+ESTIMATE_CAMERA mode (SIFT features, all-pairs 2-NN matching, perspective
+RANSAC, camera estimation with the incremental bundle adjustment, the
+spherical linear blend), TRANS and the naive flat mode — on the card; the
+CPU runs the kernels' plain versions when asked for (``device="cpu"``),
+which is what the parity tests do.
 """
 
 from .config import DEFAULT, Config
 
 __version__ = "0.1.0"
-__all__ = ["Config", "DEFAULT", "stitch_images", "__version__"]
+__all__ = ["Config", "DEFAULT", "stitch_images", "stitch_files", "__version__"]
 
 
 def stitch_images(imgs, cfg: Config | None = None, key=None,
@@ -21,13 +23,45 @@ def stitch_images(imgs, cfg: Config | None = None, key=None,
     """Stitch an [N, H, W, 3] image stack (uint8, or float32 in [0, 1]).
 
     Runs on the card unless ``device`` names another; raises when there is
-    no card and none was named.  Configurations outside the ported slice
-    (ESTIMATE_CAMERA — the ``Config()`` default —, CYLINDER, MULTIBAND > 0,
-    the naive flat mode) raise NotImplementedError.  Returns the blended
-    f32 canvas, or ``(canvas_u8, valid_mask)`` with ``output="u8"``.
-    ``info_out`` (a dict) collects run metadata: keypoint counts, the match
-    graph, the homographies and the render plan."""
+    no card and none was named.  CYLINDER and MULTIBAND > 0 are not ported
+    yet and raise NotImplementedError.  Returns the blended f32 canvas, or
+    ``(canvas_u8, valid_mask)`` with ``output="u8"``.  ``info_out`` (a dict)
+    collects run metadata: keypoint counts, the match graph, the cameras
+    and bundle adjustment statistics, the homographies and the render
+    plan."""
     from .stitch.stitcher import stitch
 
     return stitch(imgs, cfg or DEFAULT, key, output=output, device=device,
                   info_out=info_out)
+
+
+def stitch_files(paths, cfg: Config | None = None, out: str | None = None,
+                 key=None, crop: bool | None = None, device=None):
+    """Stitch image files into a panorama; optionally write it to ``out``.
+
+    Decodes each file to uint8 RGB, stitches (images of mixed sizes through
+    ``stitch_hetero``), crops to the largest valid rectangle (``cfg.CROP``
+    unless ``crop`` says otherwise), writes ``out`` if given, and returns
+    the uint8 RGB canvas.  ``device`` as for :func:`stitch_images`."""
+    import numpy as np
+
+    from .io.image import read_img_u8, write_rgb
+    from .ops.imgproc import crop_with_mask
+
+    cfg = cfg or DEFAULT
+    imgs = [read_img_u8(p) for p in paths]
+    if len({im.shape for im in imgs}) == 1:
+        canvas, valid = stitch_images(np.stack(imgs), cfg, key=key,
+                                      output="u8", device=device)
+    else:
+        if cfg.CYLINDER:
+            raise ValueError("CYLINDER mode requires uniform image sizes")
+        from .stitch.stitcher import stitch_hetero
+
+        canvas, valid = stitch_hetero(imgs, cfg, key=key, output="u8",
+                                      device=device)
+    if crop if crop is not None else cfg.CROP:
+        canvas = crop_with_mask(canvas, valid)
+    if out:
+        write_rgb(out, canvas)
+    return canvas

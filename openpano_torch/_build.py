@@ -5,8 +5,9 @@ Two kinds of library, both with a plain C interface loaded through ctypes:
 - CUDA kernels, ``csrc/<name>.cu``, compiled by ``nvcc`` for Hopper
   (``sm_90a``).  There is no fallback: a caller that needs a kernel on the
   card gets it or an error.
-- The crop DP, ``native/crop_largest_rect.c`` at the repository root,
-  compiled by the host C compiler.
+- Host code at the repository root, compiled by the host C compiler: the
+  crop DP (``native/crop_largest_rect.c``) and the PNG codec
+  (``native/png_codec.c``, linked with zlib).
 
 Libraries land in ``openpano_torch/_build/`` (git-ignored), named by a hash
 of their source and flags, so an edited source is rebuilt and a stale one is
@@ -26,7 +27,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG / "_build"
 CSRC = _PKG / "csrc"
-CROP_SRC = _PKG.parent / "native" / "crop_largest_rect.c"
+NATIVE = _PKG.parent / "native"
+CROP_SRC = NATIVE / "crop_largest_rect.c"
+PNG_SRC = NATIVE / "png_codec.c"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -85,19 +88,44 @@ def cuda_library(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def _host_library(src: Path, libs: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """``src`` built with the host C compiler (and linked with ``libs``)
+    into a shared library, loaded."""
+    flags = CC_FLAGS + libs
+    out = _target(src, flags)
+    if not out.exists():
+        cc = next((c for c in ("cc", "gcc", "clang") if shutil.which(c)), None)
+        if cc is None:
+            raise RuntimeError(f"no C compiler found for {src.name}")
+        _compile([cc, *CC_FLAGS, str(src), *libs], out, str(src))
+    return ctypes.CDLL(str(out))
+
+
 def crop_library() -> ctypes.CDLL:
     """``native/crop_largest_rect.c``, built with the host C compiler."""
     if "crop" not in _loaded:
-        out = _target(CROP_SRC, CC_FLAGS)
-        if not out.exists():
-            cc = next((c for c in ("cc", "gcc", "clang") if shutil.which(c)),
-                      None)
-            if cc is None:
-                raise RuntimeError("no C compiler found for the crop DP")
-            _compile([cc, *CC_FLAGS, str(CROP_SRC)], out, str(CROP_SRC))
-        lib = ctypes.CDLL(str(out))
+        lib = _host_library(CROP_SRC)
         lib.largest_valid_rect.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         lib.largest_valid_rect.restype = None
         _loaded["crop"] = lib
     return _loaded["crop"]
+
+
+def png_library() -> ctypes.CDLL:
+    """``native/png_codec.c`` (zlib-backed PNG decode and encode), built
+    with the host C compiler."""
+    if "png" not in _loaded:
+        lib = _host_library(PNG_SRC, ("-lz",))
+        lib.png_decode_rgb8.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64)]
+        lib.png_decode_rgb8.restype = ctypes.c_void_p
+        lib.png_encode_rgb8.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64)]
+        lib.png_encode_rgb8.restype = ctypes.c_void_p
+        lib.pano_free.argtypes = [ctypes.c_void_p]
+        lib.pano_free.restype = None
+        _loaded["png"] = lib
+    return _loaded["png"]

@@ -1,0 +1,284 @@
+"""Levenberg-Marquardt bundle adjustment over camera parameters, pair-major.
+
+Reference: stitch/incremental_bundle_adjuster.{hh,cc}; counterpart of the
+pair-major path of ``openpano_tpu/camera/bundle_adjuster.py`` (the one the
+camera estimator runs).  Six parameters per camera (focal, ppx, ppy, three
+Rodrigues); the residual of every match point is its pixel reprojection
+error through H = K_f R_f R_t^T K_t^-1 (calcError, .cc:171-197).
+
+The LM loop keeps the JAX package's semantics, quirks included:
+- J^T r uses the residual of the most recently *evaluated* state, even after
+  a rejected step, while J comes from the best accepted state
+  (.cc:117-160);
+- a step is accepted when the RMS drops by more than
+  max(1e-3, rel_tol * best);
+- it stops after ``patience`` consecutive rejections or ``max_iter`` steps;
+- split damping: lambda on rotations, lambda/10 on intrinsics
+  (.cc:240-248), adapted (/3 on accept, x4 on reject, clipped to
+  [1e-4, 1e8]) when ``adaptive``;
+- the identity camera's rotation is frozen as zeroed Jacobian COLUMNS
+  (the reference never adds them to J, .cc:144-148), not by a mask after
+  the solve.
+
+Everything is float64.  The loop is a Python loop (``lax.while_loop``
+there); it reads the error back each step to decide, which on the card is
+one small synchronisation per iteration.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .rotation import drodrigues, rodrigues
+
+LM_MAX_ITER = 100       # incremental_bundle_adjuster.cc:24
+NR_NON_DECREASE = 5     # .cc:159
+
+
+class BAPairProblem(NamedTuple):
+    """Pair-major BA inputs: uniform [P, M] point slabs per pair slot;
+    padding rows carry w = 0."""
+
+    pt_to: torch.Tensor    # [P, M, 2] half-shifted coords, stored orientation
+    pt_from: torch.Tensor  # [P, M, 2]
+    w: torch.Tensor        # [P, M] point weight (0 = padding)
+    cam_to: torch.Tensor   # [P] stored 'to' camera index
+    cam_from: torch.Tensor  # [P]
+    swapped: torch.Tensor  # [P] bool — flip the pair's direction
+    pair_w: torch.Tensor   # [P] activation weight (0 = inactive pair)
+
+
+def _pairs_eff(prob: BAPairProblem):
+    """(pt_to, pt_from, wm, rows_from, rows_to) with the swap resolved."""
+    sw = prob.swapped[:, None, None]
+    pt_to = torch.where(sw, prob.pt_from, prob.pt_to)
+    pt_from = torch.where(sw, prob.pt_to, prob.pt_from)
+    rows_to = torch.where(prob.swapped, prob.cam_from, prob.cam_to)
+    rows_from = torch.where(prob.swapped, prob.cam_to, prob.cam_from)
+    wm = prob.w * prob.pair_w[:, None]
+    return pt_to, pt_from, wm, rows_from, rows_to
+
+
+def _intrinsics(params: torch.Tensor):
+    """K, K^-1 [n, 3, 3] and 1/f [n] of the camera rows."""
+    f, px, py = params[:, 0], params[:, 1], params[:, 2]
+    z = torch.zeros_like(f)
+    o = torch.ones_like(f)
+    K = torch.stack([
+        torch.stack([f, z, px], -1), torch.stack([z, f, py], -1),
+        torch.stack([z, z, o], -1)], -2)
+    fi = 1.0 / f
+    Kinv = torch.stack([
+        torch.stack([fi, z, -px * fi], -1), torch.stack([z, fi, -py * fi], -1),
+        torch.stack([z, z, o], -1)], -2)
+    return K, Kinv, fi
+
+
+def _rows_H(params: torch.Tensor, F: torch.Tensor,
+            Tc: torch.Tensor) -> torch.Tensor:
+    """Per-pair H = K_f R_f R_t^T K_t^-1, [P, 3, 3]."""
+    R = rodrigues(params[:, 3:6])
+    K, Kinv, _ = _intrinsics(params)
+    A = K[F] @ R[F]
+    Bq = R[Tc].transpose(-1, -2) @ Kinv[Tc]
+    return A @ Bq
+
+
+def _rows_H_dH(params: torch.Tensor, F: torch.Tensor, Tc: torch.Tensor):
+    """H [P, 3, 3] and dH/dtheta [P, 12, 3, 3] for the 12 parameters of each
+    pair's (from, to) cameras, all analytic (the chain pieces at
+    incremental_bundle_adjuster.cc:84-95 and dRdvi at .cc:52-81)."""
+    v = params[:, 3:6]
+    R = rodrigues(v)
+    dR = drodrigues(v, R)                                # [n, 3, 3, 3(i)]
+    K, Kinv, fi = _intrinsics(params)
+    px, py = params[:, 1], params[:, 2]
+    z = torch.zeros_like(fi)
+    fi2 = fi * fi
+    dKinv_df = torch.stack([
+        torch.stack([-fi2, z, px * fi2], -1),
+        torch.stack([z, -fi2, py * fi2], -1),
+        torch.stack([z, z, z], -1)], -2)                 # [n, 3, 3]
+
+    KF, RF, dRF = K[F], R[F], dR[F]
+    RtT = R[Tc].transpose(-1, -2)
+    KinvT = Kinv[Tc]
+    A = KF @ RF
+    Bq = RtT @ KinvT
+    H = A @ Bq
+    RB = RF @ Bq
+
+    zero = torch.zeros_like(RB)
+    # dK_f/df = diag(1, 1, 0): keep the first two rows of RB
+    d_f = RB.clone()
+    d_f[..., 2, :] = 0.0
+    # dK_f/dppx = e1 e3^T, dK_f/dppy = e2 e3^T: move RB's third row
+    d_px = zero.clone()
+    d_px[..., 0, :] = RB[..., 2, :]
+    d_py = zero.clone()
+    d_py[..., 1, :] = RB[..., 2, :]
+    d_vf = torch.einsum("pij,pjlk,plm->pkim", KF, dRF, Bq)   # [P, 3(k), 3, 3]
+    ARt = A @ RtT
+    d_ft = ARt @ dKinv_df[Tc]
+    fiT = fi[Tc]
+    e3 = torch.tensor([0.0, 0.0, 1.0], dtype=params.dtype,
+                      device=params.device)[None, None, :]
+    d_pxt = -(ARt[..., :, 0] * fiT[:, None])[..., :, None] * e3
+    d_pyt = -(ARt[..., :, 1] * fiT[:, None])[..., :, None] * e3
+    # dR_t^T/dv_k = (dR_t/dv_k)^T
+    d_vt = torch.einsum("pij,pljk,plm->pkim", A, dR[Tc], KinvT)
+
+    dH = torch.cat([
+        d_f[:, None], d_px[:, None], d_py[:, None], d_vf,
+        d_ft[:, None], d_pxt[:, None], d_pyt[:, None], d_vt,
+    ], dim=1)                                            # [P, 12, 3, 3]
+    return H, dH
+
+
+def _project(H: torch.Tensor, pt_to: torch.Tensor):
+    """Homogeneous points [P, M, 3], H·p [P, M, 3], the clamped depth and
+    the depth mask."""
+    ph = torch.cat([pt_to, torch.ones_like(pt_to[..., :1])], -1)
+    u = torch.einsum("pij,pmj->pmi", H, ph)
+    zok = torch.abs(u[..., 2]) > 1e-20
+    zs = torch.where(zok, u[..., 2], 1e-20)
+    return ph, u, zs, zok
+
+
+def _pairs_residuals(params: torch.Tensor, prob: BAPairProblem):
+    """Weighted residuals [P, M, 2] (calcError, .cc:171-197) and the
+    effective weights [P, M]."""
+    pt_to, pt_from, wm, F, Tc = _pairs_eff(prob)
+    _, u, zs, _ = _project(_rows_H(params, F, Tc), pt_to)
+    r = pt_from - u[..., :2] / zs[..., None]
+    return r * wm[..., None], wm
+
+
+def _pairs_ne_blocks(params, resid_w, prob: BAPairProblem, upd=None):
+    """Per-pair normal-equation blocks: Bp [P, 12, 12], bp [P, 12] in
+    [from(6) | to(6)] row order, plus the effective camera rows (F, Tc).
+
+    ``upd`` ([n, 6], 0 = frozen parameter) zeroes the corresponding
+    Jacobian COLUMNS, so the solve itself honours the freeze."""
+    pt_to, _, wm, F, Tc = _pairs_eff(prob)
+    H, dH = _rows_H_dH(params, F, Tc)
+    ph, u, zs, zok = _project(H, pt_to)
+    du = torch.einsum("pkij,pmj->pmki", dH, ph)          # [P, M, 12, 3]
+    zi = 1.0 / zs
+    zterm = torch.where(zok, zi * zi, 0.0)
+    Jx = -(du[..., 0] * zi[..., None]
+           - du[..., 2] * (u[..., 0] * zterm)[..., None])
+    Jy = -(du[..., 1] * zi[..., None]
+           - du[..., 2] * (u[..., 1] * zterm)[..., None])
+    Jp = torch.stack([Jx, Jy], dim=-2) * wm[..., None, None]  # [P, M, 2, 12]
+    P, M = wm.shape
+    Jf = Jp.reshape(P, M * 2, 12)
+    if upd is not None:
+        Jf = Jf * torch.cat([upd[F], upd[Tc]], -1)[:, None, :]
+    rw = resid_w.reshape(P, M * 2)
+    Bp = torch.einsum("pti,ptj->pij", Jf, Jf)
+    bp = torch.einsum("pti,pt->pi", Jf, rw)
+    return Bp, bp, F, Tc
+
+
+def assemble_scatter(Bp, bp, rows, n6: int):
+    """JtJ [n6, n6], Jtb [n6] from per-slot blocks Bp [P, 12, 12] and bp
+    [P, 12] at the rows [P, 12], by an accumulating index_put_.  On the CPU
+    it adds in slot order; on the card it sorts the indices and sums each
+    run of equal ones in a fixed order, without atomics, so two runs give
+    the same bits (chip_smoke.py checks both)."""
+    P = rows.shape[0]
+    JtJ = torch.zeros(n6, n6, dtype=Bp.dtype, device=Bp.device)
+    JtJ.index_put_((rows[:, :, None].expand(P, 12, 12),
+                    rows[:, None, :].expand(P, 12, 12)), Bp, accumulate=True)
+    Jtb = torch.zeros(n6, dtype=Bp.dtype, device=Bp.device).index_put_(
+        (rows,), bp, accumulate=True)
+    return JtJ, Jtb
+
+
+def _pairs_normal_equations(params, resid_w, prob: BAPairProblem, n_cam: int,
+                            upd=None):
+    """JtJ [6n, 6n], Jtb [6n] from the per-pair blocks; rows of several
+    pair slots meet in one camera block, so the blocks are summed."""
+    Bp, bp, F, Tc = _pairs_ne_blocks(params, resid_w, prob, upd)
+    offs = torch.arange(6, device=F.device)
+    rows = torch.cat([F[:, None] * 6 + offs, Tc[:, None] * 6 + offs], 1)
+    return assemble_scatter(Bp, bp, rows, n_cam * 6)
+
+
+def solve_sym_scaled_chol(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f64 solve of the damped normal equations: Jacobi-scale to unit
+    diagonal (the damped JtJ is SPD but badly scaled, focal^2 against
+    rotation entries), Cholesky, two triangular solves.
+
+    A factorization that fails (A not SPD) gives NaN, as ``jnp.linalg.
+    cholesky`` does, so that the LM rejects the step by its error test;
+    nothing raises and nothing waits for the device."""
+    d = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(A)), min=1e-30))
+    As = A / d[:, None] / d[None, :]
+    bs = (b / d)[:, None]
+    L, info = torch.linalg.cholesky_ex(As)
+    L = torch.where(info == 0, L, torch.nan)
+    y = torch.linalg.solve_triangular(L, bs, upper=False)
+    x = torch.linalg.solve_triangular(L.T, y, upper=True)
+    return x[:, 0] / d
+
+
+def _rms(r: torch.Tensor, wm: torch.Tensor) -> float:
+    """sqrt(mean of squared residuals) over active points, two per point
+    (.cc:199-220)."""
+    npts = (wm > 0).sum().to(r.dtype) * 2.0
+    return float(torch.sqrt((r * r).sum() / torch.clamp(npts, min=1.0)))
+
+
+def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
+                      identity_idx: int, n_cam: int, lm_lambda: float,
+                      adaptive: bool = False, max_iter: int = LM_MAX_ITER,
+                      patience: int = NR_NON_DECREASE, rel_tol: float = 0.0,
+                      banded: bool = False):
+    """The LM loop (optimize(), .cc:117-168) over a pair-major problem, on
+    the device of ``params`` and ``prob``.  params: [n, 6] float64 rows
+    (focal, ppx, ppy, rx, ry, rz).  ``banded`` solves the normal equations
+    by cyclic block Thomas elimination (chain/ring match graphs) instead of
+    the dense Cholesky.  Returns (optimized params [n, 6], iterations)."""
+    if not lm_lambda > 0:
+        raise ValueError("LM damping must be positive (SPD precondition)")
+    dt, dev = params.dtype, params.device
+    upd = torch.ones(n_cam, 6, dtype=dt, device=dev)
+    upd[identity_idx, 3:] = 0.0
+    upd_flat = upd.reshape(-1)
+    damp_unit = torch.where(torch.arange(n_cam * 6, device=dev) % 6 >= 3,
+                            1.0, 0.1).to(dt)
+
+    best_flat = params.reshape(-1)
+    resid, wm = _pairs_residuals(params, prob)
+    best_err = _rms(resid, wm)
+    nr_nd, itr, lam = 0, 0, float(lm_lambda)
+    while itr < max_iter and nr_nd <= patience:
+        cur = best_flat.reshape(n_cam, 6)
+        if banded:
+            from .banded import assemble_banded, solve_block_cyclic
+
+            Bp, bp, F, Tc = _pairs_ne_blocks(cur, resid, prob, upd)
+            D, U, C, rhs = assemble_banded(Bp, bp, F, Tc, n_cam)
+            dvec = (damp_unit * lam).reshape(n_cam, 6)
+            D = D + torch.eye(6, dtype=dt, device=dev)[None] * dvec[:, :, None]
+            delta = solve_block_cyclic(D, U, C, rhs).reshape(-1)
+        else:
+            JtJ, Jtb = _pairs_normal_equations(cur, resid, prob, n_cam, upd)
+            delta = solve_sym_scaled_chol(
+                JtJ + torch.diag(damp_unit * lam), Jtb)
+        new_flat = best_flat - delta * upd_flat
+        resid, wm = _pairs_residuals(new_flat.reshape(n_cam, 6), prob)
+        new_err = _rms(resid, wm)
+        improved = new_err < best_err - max(1e-3, rel_tol * best_err)
+        if improved:
+            best_flat, best_err, nr_nd = new_flat, new_err, 0
+        else:
+            nr_nd += 1
+        if adaptive:
+            lam = min(max(lam / 3.0 if improved else lam * 4.0, 1e-4), 1e8)
+        itr += 1
+    return best_flat.reshape(n_cam, 6), itr

@@ -8,9 +8,9 @@ means the same thing here (see :mod:`openpano_torch.compat`).  The same
 whitespace key-value file format is accepted by :func:`Config.from_file`
 (reference: lib/config.cc:13-35).
 
-Knobs that steer code this package has not ported yet (the camera stack,
-multiband, cylinder mode) are carried unchanged; the entry point refuses the
-configurations that need them.
+Knobs that steer code this package has not ported yet (multiband, cylinder
+mode) are carried unchanged; the entry point refuses the configurations that
+need them.
 """
 
 from __future__ import annotations
@@ -94,8 +94,9 @@ class Config:
     OVERLAP_AREA_GRID: int = 64
     RANSAC_DTYPE: str = "float32"
     BA_DTYPE: str = "float64"
-    # Bundle-adjustment knobs of the JAX package's camera stack (carried for
-    # config parity; the camera stack is not ported yet).
+    # Bundle-adjustment knobs of the camera stack: where the LM runs (host
+    # CPU or the card), the robust focal estimate, adaptive damping and the
+    # incremental schedule's caps.
     BA_ON_HOST: bool = True
     ROBUST_FOCAL: bool = True
     BA_ADAPTIVE_LM: bool = True

@@ -1,5 +1,6 @@
-// Keypoint-window histogram kernels for Hopper (sm_90a): the SIFT
-// orientation histogram (K1) and the raw 4x4x8 descriptor histogram (K2).
+// Keypoint-window kernels for Hopper (sm_90a): the SIFT orientation
+// histogram (K1), the raw 4x4x8 descriptor histogram (K2) and the window
+// slab gather (K3, at the end of this file, with its own note).
 //
 // They replace the Pallas kernels `_ori_hist_pallas` and `_desc_hist_pallas`
 // of openpano_tpu/ops/windows.py and compute what their plain references
@@ -204,6 +205,52 @@ desc_hist_kernel(const float* __restrict__ mag, const float* __restrict__ ort,
   o[t] = acc;
 }
 
+// K3: per keypoint, the [WR, 256] slab of each of two planes, as if the
+// planes were zero-padded to (Hp, Wp) = (max(ceil8(H), WR),
+// max(ceil128(W), 256)): out[k, i, j] = plane[s, r0 + i, c0 + j], or 0 where
+// r0 + i >= H or c0 + j >= W, with r0 = clip(y - WR/2, 0, Hp - WR) & ~7,
+// c0 = clip(x - 64, 0, Wp - 256) & ~127 and s clipped to [0, S - 1].
+//
+// It replaces `_win2_pallas` of openpano_tpu/ops/windows.py, whose plain
+// reference is `_win2_xla`.  The TPU kernel DMAs each slab from a padded
+// copy of the planes; here nothing is padded in memory: the block reads the
+// unpadded planes and writes the zeros itself.  What bounds it on an H100:
+// bytes.  It moves 2 * K * WR * 1 KB out and at most as much in, and
+// computes nothing.  Design against that: one block per (keypoint, group of
+// ROWS slab rows), 256 threads, thread j on lane j, so each slab row is one
+// coalesced 1 KB read and one coalesced 1 KB write per plane; both planes in
+// the same block.  Same inputs, same bits (a copy).
+constexpr int SLAB_LANES = 256;
+constexpr int WIN2_ROWS = 8;
+
+__global__ void __launch_bounds__(SLAB_LANES)
+win2_kernel(const float* __restrict__ a, const float* __restrict__ b, int S,
+            int H, int W, int Hp, int Wp, const int* __restrict__ ks,
+            const int* __restrict__ ky, const int* __restrict__ kx, int WR,
+            float* __restrict__ outa, float* __restrict__ outb) {
+  const int k = blockIdx.x;
+  const int j = threadIdx.x;
+  const int s = min(max(ks[k], 0), S - 1);
+  const int r0 = min(max(ky[k] - WR / 2, 0), Hp - WR) & ~7;
+  const int c0 = min(max(kx[k] - 64, 0), Wp - SLAB_LANES) & ~127;
+  const int c = c0 + j;
+  const size_t plane = (size_t)s * H * W;
+  const int i0 = blockIdx.y * WIN2_ROWS;
+  const int i1 = min(i0 + WIN2_ROWS, WR);
+  for (int i = i0; i < i1; ++i) {
+    const int r = r0 + i;
+    float va = 0.f, vb = 0.f;
+    if (r < H && c < W) {
+      const size_t src = plane + (size_t)r * W + c;
+      va = a[src];
+      vb = b[src];
+    }
+    const size_t dst = ((size_t)k * WR + i) * SLAB_LANES + j;
+    outa[dst] = va;
+    outb[dst] = vb;
+  }
+}
+
 }  // namespace
 
 extern "C" int ori_hist_launch(const void* mag, const void* ort, int S, int H,
@@ -237,6 +284,21 @@ extern "C" int desc_hist_launch(const void* mag, const void* ort, int S, int H,
         (const float*)cos_o, (const float*)sin_o, (const float*)dirv,
         (const float*)hb, (const float*)wb, (const uint8_t*)active, R,
         (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int win2_launch(const void* a, const void* b, int S, int H, int W,
+                           const void* s, const void* y, const void* x, int K,
+                           int WR, void* outa, void* outb, void* stream) {
+  if (K > 0) {
+    const int H8 = (H + 7) / 8 * 8, W128 = (W + 127) / 128 * 128;
+    const int Hp = H8 > WR ? H8 : WR;
+    const int Wp = W128 > SLAB_LANES ? W128 : SLAB_LANES;
+    const dim3 grid(K, (WR + WIN2_ROWS - 1) / WIN2_ROWS);
+    win2_kernel<<<grid, SLAB_LANES, 0, (cudaStream_t)stream>>>(
+        (const float*)a, (const float*)b, S, H, W, Hp, Wp, (const int*)s,
+        (const int*)y, (const int*)x, WR, (float*)outa, (float*)outb);
   }
   return (int)cudaGetLastError();
 }

@@ -32,20 +32,50 @@ def working_size(w: int, h: int, target: int) -> tuple[int, int]:
     return int(h * ratio), int(w * ratio)
 
 
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """f32 a*b + c with the one rounding of a fused multiply-add.  The
+    product of two f32 values is exact in f64; its f64 sum with c may
+    round, and a second rounding to f32 would then miss on ties.  So the
+    sum rounds to odd: its error (TwoSum) is exact, and an inexact sum
+    whose last bit is even moves one f64 ulp toward it.  With 29 bits to
+    spare, the cast to f32 then rounds as the exact sum would."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _resize_coords(n_out: int, n_in: int, dev) -> torch.Tensor:
+    a = torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5
+    scale = torch.tensor(n_in / n_out, dtype=torch.float32, device=dev)
+    return _fma(a, scale, torch.full_like(a, -0.5))
+
+
 def resize(img: torch.Tensor, out_h: int, out_w: int,
            rgb: bool = False) -> torch.Tensor:
     """Bilinear resize with half-pixel centers and edge clamping, matching
     the reference's resize_bilinear (imgproc.cc:22-80).
+
+    The source coordinates and the lerps round as fused multiply-adds, as
+    XLA:CPU contracts the JAX package's expressions (``(i + 0.5) * s -
+    0.5`` and each ``a * p + b * q`` as fma(a, p, b * q)); rounded apart,
+    the coordinates move by an ulp of the pixel index (1.5e-5 px at x=130)
+    and the resized image by up to 7e-6, enough to flip a DoG extremum
+    test downstream.  The result equals the JAX package's jitted CPU
+    resize bit for bit, ties included.
 
     img: [..., H, W] planes, or [..., H, W, C] with ``rgb=True``; leading
     dims are batched."""
     hd, wd = (-3, -2) if rgb else (-2, -1)
     h, w = img.shape[hd], img.shape[wd]
     dev = img.device
-    ry = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) \
-        * (h / out_h) - 0.5
-    rx = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) \
-        * (w / out_w) - 0.5
+    ry = _resize_coords(out_h, h, dev)
+    rx = _resize_coords(out_w, w, dev)
     sy = torch.floor(ry)
     sx = torch.floor(rx)
     fy = ry - sy
@@ -66,8 +96,9 @@ def resize(img: torch.Tensor, out_h: int, out_w: int,
     else:
         fy = fy[:, None]
         fx = fx[None, :]
-    return (1 - fy) * ((1 - fx) * p00 + fx * p01) \
-        + fy * ((1 - fx) * p10 + fx * p11)
+    top = _fma(1 - fx, p00, fx * p01)
+    bot = _fma(1 - fx, p10, fx * p11)
+    return _fma(1 - fy, top, fy * bot)
 
 
 def bilinear_prologue(h: int, w: int, y: torch.Tensor, x: torch.Tensor):

@@ -1,4 +1,4 @@
-"""Keypoint-window histograms: the two SIFT kernels of the feature stage.
+"""Keypoint windows: the two SIFT histogram kernels and the slab gather.
 
 Orientation assignment and the descriptor both need, per keypoint, a small
 window of the gradient magnitude/orientation planes around the keypoint
@@ -9,7 +9,11 @@ histogram:
 - ``orientation_histogram`` (K1): 36-bin hard-binned, gaussian-weighted;
   it replaces ``_ori_hist_pallas`` of ``openpano_tpu/ops/windows.py``;
 - ``descriptor_histogram`` (K2): the raw 4x4x8 trilinear SIFT histogram
-  (RootSIFT stays outside); it replaces ``_desc_hist_pallas``.
+  (RootSIFT stays outside); it replaces ``_desc_hist_pallas``;
+- ``gather_window_slabs`` (K3): the [WR, 256] slab of two planes around
+  each keypoint, by the slab rule below; it replaces ``_win2_pallas``.  No
+  stitch path calls it (the histogram kernels read their windows
+  themselves); it is the JAX package's public window extraction.
 
 On the card each wrapper launches its CUDA kernel (``csrc/windows.cu``;
 the note there says what bounds it and how the design answers that); on
@@ -36,6 +40,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .._build import cuda_library
 from ..utils.precision import full_f32
@@ -54,11 +59,16 @@ def slab_rows(radius: int) -> int:
     return -(-(2 * radius + 16) // 8) * 8
 
 
+def padded_dims(H: int, W: int, WR: int) -> tuple[int, int]:
+    """(Hp, Wp): the plane zero-padded to 8-row and 128-lane multiples, at
+    least one slab in each dimension."""
+    return max(-(-H // 8) * 8, WR), max(-(-W // 128) * 128, SLAB_LANES)
+
+
 def window_starts(y: torch.Tensor, x: torch.Tensor, H: int, W: int, WR: int):
     """Row/col starts of a keypoint's [WR, 256] slab on the zero-padded
     plane (the JAX package's ``window_starts``)."""
-    Hp = max(-(-H // 8) * 8, WR)
-    Wp = max(-(-W // 128) * 128, SLAB_LANES)
+    Hp, Wp = padded_dims(H, W, WR)
     r0 = torch.clamp(y.to(torch.int32) - WR // 2, 0, Hp - WR) & ~7
     c0 = torch.clamp(x.to(torch.int32) - 64, 0, Wp - SLAB_LANES) & ~127
     return r0, c0
@@ -190,6 +200,31 @@ def desc_hist_plain(mag, ort, s, y, x, radius, hw, cos_o, sin_o, dirv, hb, wb,
                       hw, cos_o, sin_o, dirv, hb, wb)
 
 
+def slab_index(S: int, H: int, W: int, s, y, x, WR: int):
+    """Index tuple (plane [K,1,1], row [K,WR,1], lane [K,1,256]) of each
+    keypoint's slab into the planes zero-padded to ``padded_dims``."""
+    r0, c0 = window_starts(y, x, H, W, WR)
+    dev = s.device
+    rows = r0.long()[:, None] + torch.arange(WR, device=dev)
+    cols = c0.long()[:, None] + torch.arange(SLAB_LANES, device=dev)
+    return (s.long().clamp(0, S - 1)[:, None, None], rows[:, :, None],
+            cols[:, None, :])
+
+
+def pad_planes(p: torch.Tensor, WR: int) -> torch.Tensor:
+    """[..., H, W] planes zero-padded to ``padded_dims``, as float32."""
+    H, W = p.shape[-2], p.shape[-1]
+    Hp, Wp = padded_dims(H, W, WR)
+    return F.pad(p.to(torch.float32), (0, Wp - W, 0, Hp - H))
+
+
+def win2_plain(a, b, s, y, x, WR: int):
+    """Plain PyTorch K3 over folded [S, H, W] planes and [K] keypoints: the
+    semantics of ``_win2_xla`` — pad the planes, then index the slabs."""
+    idx = slab_index(*a.shape, s, y, x, WR)
+    return pad_planes(a, WR)[idx], pad_planes(b, WR)[idx]
+
+
 # ---------------------------------------------------------------------------
 # CUDA launchers
 # ---------------------------------------------------------------------------
@@ -208,6 +243,9 @@ def _lib():
     lib.desc_hist_launch.argtypes = (
         [_P, _P, _I, _I, _I] + [_P] * 11 + [_I, _I, _P, _P])
     lib.desc_hist_launch.restype = ctypes.c_int
+    lib.win2_launch.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P,
+                                _P, _P]
+    lib.win2_launch.restype = ctypes.c_int
     return lib
 
 
@@ -282,6 +320,28 @@ def desc_hist_cuda(mag, ort, s, y, x, radius, hw, cos_o, sin_o, dirv, hb, wb,
     _raise_on(err, "descriptor histogram")
     descriptor_histogram.launches += 1
     return out
+
+
+def win2_cuda(a, b, s, y, x, WR: int):
+    """Launch K3 on the card (folded [S, H, W] planes, [K] keypoints):
+    both planes' slabs in one launch, read from the unpadded planes."""
+    a, b = _check_planes(a, b)
+    S, H, W = a.shape
+    K = s.shape[0]
+    s, y, x = (v.to(device=a.device, dtype=torch.int32).contiguous()
+               for v in (s, y, x))
+    if not s.shape == y.shape == x.shape == (K,):
+        raise ValueError("s, y, x must be three [K] arrays")
+    wa = torch.empty(K, WR, SLAB_LANES, dtype=torch.float32, device=a.device)
+    wb = torch.empty_like(wa)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _lib().win2_launch(
+            a.data_ptr(), b.data_ptr(), S, H, W, s.data_ptr(), y.data_ptr(),
+            x.data_ptr(), K, WR, wa.data_ptr(), wb.data_ptr(), stream)
+    _raise_on(err, "window slab")
+    gather_window_slabs.launches += 1
+    return wa, wb
 
 
 # ---------------------------------------------------------------------------
@@ -360,5 +420,24 @@ def descriptor_histogram(mag, ort, s, y, x, radius, hw, dirv, R: int, wh=None,
     return hist if bk is None else hist.reshape(*bk, -1)
 
 
+def gather_window_slabs(a, b, s, y, x, WR: int):
+    """Keypoint-centred [WR, 256] slabs of two [S, H, W] planes.
+
+    Returns ``(wa, wb)`` of shape [K, WR, 256]: ``wa[k, i, j]`` is the plane
+    ``a`` zero-padded to ``padded_dims`` at plane ``clip(s, 0, S-1)``, row
+    ``r0 + i`` and lane ``c0 + j`` with (r0, c0) from ``window_starts``.
+    ``WR`` must be a multiple of 8 (``slab_rows`` gives one).  [B, S, H, W]
+    planes with [B, K] keypoints fold into the plane axis and return
+    [B, K, WR, 256], one launch for the batch."""
+    if WR <= 0 or WR % 8:
+        raise ValueError(f"slab rows {WR} must be a positive multiple of 8")
+    a, b, s, (y, x), bk = _fold(a, b, s, [y, x])
+    wa, wb = _route(a, win2_plain, win2_cuda, a, b, s, y, x, WR)
+    if bk is None:
+        return wa, wb
+    return (wa.reshape(*bk, WR, SLAB_LANES), wb.reshape(*bk, WR, SLAB_LANES))
+
+
 orientation_histogram.launches = 0
 descriptor_histogram.launches = 0
+gather_window_slabs.launches = 0

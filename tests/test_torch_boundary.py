@@ -76,3 +76,35 @@ def test_kernel_wrappers_never_take_plain_path_on_card():
         windows.orientation_histogram(meta[0], meta[0], s, s, s,
                                       s.float(), s.float(), 8,
                                       valid=s.bool())
+
+
+@pytest.mark.parametrize("module", [
+    "camera/rotation.py", "camera/camera.py", "camera/bundle_adjuster.py",
+    "camera/banded.py", "camera/estimator.py", "io/image.py",
+    "stitch/stitcher.py", "ops/windows.py"])
+def test_slice_modules_are_checked(module):
+    """The camera stack, the image IO and the stitcher are among the files
+    the import check above parses."""
+    assert ROOT / "openpano_torch" / module in _port_files()
+
+
+def test_entry_points_raise_without_card(monkeypatch):
+    """stitch_hetero and the bundle adjustment on the card
+    (BA_ON_HOST=False) refuse to fall back to the CPU."""
+    import numpy as np
+
+    from openpano_torch import Config
+    from openpano_torch.camera.estimator import estimate_cameras
+    from openpano_torch.stitch.stitcher import stitch_hetero
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stitch_hetero([np.zeros((32, 32, 3), np.uint8)] * 2, Config())
+    n, M = 3, 4
+    conf = np.zeros((n, n))
+    conf[0, 1] = conf[1, 0] = conf[1, 2] = conf[2, 1] = 0.5
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        estimate_cameras(conf, np.tile(np.eye(3), (n, n, 1, 1)),
+                         np.zeros((n, n, M, 2)), np.zeros((n, n, M, 2)),
+                         np.ones((n, n, M), bool), np.full((n, 2), 64.0),
+                         Config(BA_ON_HOST=False))

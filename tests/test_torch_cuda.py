@@ -74,3 +74,33 @@ def test_kernel_matches_plain_on_card(card, which, R, B):
     err = (got - want.double()).abs().max() / want.abs().max().clamp(min=1e-6)
     assert float(err) < TOL
     assert (got[~c["valid"].cpu()] == 0).all()
+
+
+@pytest.mark.parametrize("S,H,W,WR,B", [(3, 100, 300, 32, None),
+                                        (4, 61, 397, 56, None),
+                                        (3, 50, 140, 24, 2)])
+def test_slab_kernel_equals_plain_on_card(card, S, H, W, WR, B):
+    """K3 against its plain version on the same card tensors: a copy, so
+    bit-equal, keypoints past every border and planes out of range too."""
+    rng = np.random.default_rng(S * H)
+    lead = () if B is None else (B,)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    a = t(rng.uniform(size=lead + (S, H, W)).astype(np.float32))
+    b = t(rng.uniform(size=lead + (S, H, W)).astype(np.float32))
+    s_hi = S if B is not None else S + 2
+    s = t(rng.integers(0 if B is not None else -2, s_hi,
+                       lead + (64,)).astype(np.int32))
+    y = t(rng.integers(-8, H + 8, lead + (64,)).astype(np.int32))
+    x = t(rng.integers(-8, W + 8, lead + (64,)).astype(np.int32))
+    before = windows.gather_window_slabs.launches
+    got = windows.gather_window_slabs(a, b, s, y, x, WR)
+    again = windows.gather_window_slabs(a, b, s, y, x, WR)
+    torch.cuda.synchronize()
+    assert windows.gather_window_slabs.launches == before + 2
+    fold = (lambda v: v) if B is None else (lambda v: v.reshape(-1, *v.shape[2:]))
+    offs = 0 if B is None else (torch.arange(B, device=card)[:, None] * S)
+    want = windows.win2_plain(fold(a), fold(b), (s + offs).reshape(-1),
+                              y.reshape(-1), x.reshape(-1), WR)
+    for g, r, w in zip(got, again, want):
+        assert torch.equal(g, r)
+        assert torch.equal(g.reshape(w.shape), w)

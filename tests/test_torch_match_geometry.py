@@ -270,8 +270,15 @@ def test_linear_chain_matches():
         assert g_t.fill_pair(*args) and g_j.fill_pair(*args)
     whs = np.array([[W, H]] * n)
     np.testing.assert_array_equal(
-        tstitcher._build_linear_simple(g_t, n, n // 2, whs),
+        tstitcher._build_linear_simple(g_t, n, n // 2, whs, TCFG),
         jstitcher._build_linear_simple(g_j, n, n // 2, whs, JCFG))
+    # the naive flat mode prescales by the focal estimate instead
+    naive = dict(TRANS=False, ORDERED_INPUT=False)
+    np.testing.assert_array_equal(
+        tstitcher._build_linear_simple(g_t, n, n // 2, whs,
+                                       TCFG.replace(**naive)),
+        jstitcher._build_linear_simple(g_j, n, n // 2, whs,
+                                       JCFG.replace(**naive)))
     g_t.conf[1, 2] = g_t.conf[2, 1] = 0
     with pytest.raises(RuntimeError):
-        tstitcher._build_linear_simple(g_t, n, n // 2, whs)
+        tstitcher._build_linear_simple(g_t, n, n // 2, whs, TCFG)

@@ -71,6 +71,64 @@ def test_resize_matches_gather_form(shape, out):
     assert _rel(got[1], jimg._resize_gather(jnp.asarray(gb[1]), *out)) < 1e-5
 
 
+def _tie_lerps(w: int, out_w: int):
+    """A [2, w] image resized to [2, out_w] (one pixel pair per output
+    column) whose horizontal lerps (1-fx)*p00 + fx*p01 fall within 2^-29
+    of an f32 half ulp: a dark p00 beside a bright p01.  Row 0 sits just
+    below the half ulp with fx*p01 of odd last bit, row 1 just above with
+    it even, so that a sum rounded once to f64 and again to f32 ties the
+    wrong way.  Returns the image and the crafted (row, column, t, p00, c)."""
+    rng = np.random.default_rng(0)
+    img = rng.random((2, w)).astype(np.float32)
+    scale = np.float32(w / out_w)
+    cases = []
+    for j in range(out_w):
+        # (j + 0.5) * s - 0.5 is exact in f64, so one cast rounds it
+        rx = np.float32((j + 0.5) * np.float64(scale) - 0.5)
+        sx = int(np.floor(rx))
+        fx = np.float32(rx - sx)
+        t = np.float32(1) - fx
+        if sx < 0 or sx + 1 >= w or fx == 0:
+            continue
+        num, den = float(t).as_integer_ratio()
+        shift = 24 - num.bit_length()
+        T = num << shift                       # t = T * 2^-shift / den
+        E = int(np.floor(np.log2(fx))) - 1     # fx*p01 in [2^E, 2^(E+1))
+        for row, below in ((0, True), (1, False)):
+            q, r = divmod(1 << 47, T)
+            Q, d = (q, r) if below else (q + 1, T - r)
+            if Q >= 1 << 24 or d >= 1 << 17:
+                continue                       # t * p00 not near 2^(E-24)
+            p00 = np.float32(Q * 2.0 ** (E - 71 + shift + den.bit_length() - 1))
+            for _ in range(1000):
+                p01 = np.float32(rng.uniform(2.0 ** E / fx,
+                                             2.0 ** (E + 1) / fx))
+                c = np.float32(fx * p01)
+                if (2.0 ** E <= c < 2.0 ** (E + 1)
+                        and bool(c.view(np.int32) & 1) == below):
+                    break
+            else:
+                continue
+            img[row, sx], img[row, sx + 1] = p00, p01
+            cases.append((row, j, t, p00, c))
+    return img, cases
+
+
+def test_resize_rounds_ties_as_one_fused_multiply_add():
+    """On lerps crafted to land next to a tie, where rounding the exact sum
+    first to f64 and then to f32 differs from one rounding, the resize
+    still equals the JAX package's jitted CPU resize (whose multiply-adds
+    XLA contracts) bit for bit."""
+    img, cases = _tie_lerps(1157, 500)
+    want = np.asarray(jax.jit(jimg.resize, static_argnums=(1, 2))(
+        jnp.asarray(img), 2, 500))
+    twice = [np.float32(float(t) * float(p00) + float(c))
+             for _, _, t, p00, c in cases]
+    ties = [want[r, j] != v for (r, j, *_), v in zip(cases, twice)]
+    assert len(cases) >= 8 and all(ties)       # every case is a tie case
+    np.testing.assert_array_equal(timg.resize(_t(img), 2, 500).numpy(), want)
+
+
 def test_working_size_and_grey():
     for w, h in ((1300, 867), (320, 240), (97, 1001)):
         assert timg.working_size(w, h, 800) == jimg.working_size(w, h, 800)

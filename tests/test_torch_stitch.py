@@ -17,10 +17,11 @@ import pytest
 import openpano_tpu  # noqa: F401  (x64 on, as the JAX package runs)
 from openpano_tpu.config import Config as JConfig
 from openpano_tpu.stitch.stitcher import stitch as jstitch
-from openpano_torch import stitch_images
+from openpano_torch import Config, stitch_images
 from openpano_torch.compat import config_from_fields, key_from_numpy
 from openpano_torch.stitch.stitcher import stitch as tstitch
-from openpano_torch.synth import strip_views
+from openpano_torch.synth import procedural_scene_large, render_views, \
+    strip_views
 
 SMALL = dict(
     RANSAC_ITERATIONS=400,
@@ -95,17 +96,26 @@ def test_canvas_ncc(both):
 
 
 def test_stitch_images_entry_point():
-    """The public entry point on the CPU (u8 out), and the refusals."""
+    """The public entry point on the CPU (u8 out) in TRANS mode, the default
+    ``Config()`` and the naive flat mode on rotating views, and the
+    refusals of what is not ported yet."""
     cfg = config_from_fields(dataclasses.asdict(JCFG))
     canvas, valid = stitch_images(_views("u8"), cfg, output="u8",
                                   device="cpu")
     assert canvas.dtype == np.uint8 and canvas.shape[:2] == valid.shape
     assert canvas.shape[1] > 700 and valid.mean() > 0.8
-    for kw in (dict(), dict(ESTIMATE_CAMERA=False),
-               dict(ESTIMATE_CAMERA=False, TRANS=True, MULTIBAND=2),
-               dict(ESTIMATE_CAMERA=False, CYLINDER=True,
-                    ORDERED_INPUT=True)):
+    views, _ = render_views(procedural_scene_large(600, 2400, seed=0), 5,
+                            out_w=320, out_h=240, hfov_deg=32, overlap=0.5)
+    u8 = np.round(views * 255).astype(np.uint8)
+    default = Config(**SMALL)
+    for mode in (default, default.replace(ESTIMATE_CAMERA=False)):
+        info = {}
+        canvas, valid = stitch_images(u8, mode, output="u8", device="cpu",
+                                      info_out=info)
+        assert canvas.shape[1] > 2.0 * 320 and valid.mean() > 0.3
+        assert info["connected_pairs"] >= 4
+        assert ("cams" in info) == mode.ESTIMATE_CAMERA
+    for kw in (dict(MULTIBAND=2),
+               dict(ESTIMATE_CAMERA=False, CYLINDER=True, ORDERED_INPUT=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stitch_images(_views("u8"), cfg.replace(**{
-                "TRANS": False, "ESTIMATE_CAMERA": True, **kw}),
-                device="cpu")
+            stitch_images(u8, default.replace(**kw), device="cpu")
