@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Drive openpano_torch on one NVIDIA card, end to end, and report.
 
-    python3 chip_smoke.py          # one card; exits non-zero without one
+    python3 chip_smoke.py            # one card; exits non-zero without one
+    python3 chip_smoke.py --kernels  # phases 1-4 only, no device line
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: the package's CUDA source (one file, one nvcc run);
+  2. build: the package's CUDA source (one file, one nvcc run), with
+     ptxas's registers, shared memory and spills per kernel;
   3. inputs: the headline set — 38 uint8 views of 1300x867 of a camera
      yawing through a 336 degree sweep (40 degree field of view, 80%
      overlap) over ``procedural_scene_large``, shuffled: the shape of the
      JAX package's bench.py, on procedural data — and a 38-view
      translated strip for TRANS mode;
   4. kernels: K1 and K2 on the inputs the first feature batch of each path
-     gives them (the headline's and the TRANS strip's, whose caps differ)
-     and on a seeded random case of the same shapes, held against their
-     plain versions (max|a-b| / max|b| < 1e-4), timed at the headline's;
+     gives them (the headline's and the TRANS strip's, whose caps differ),
+     on a seeded random case of the same shapes and on a crafted case with
+     pixels exactly on bin edges (``edge_case``), held against their plain
+     versions (max|a-b| / max|b| < 1e-4), timed at the headline's;
      K3 on the headline batch's planes and descriptor keypoints (WR =
      slab_rows(19) = 56) and on a random case with odd plane sizes,
      keypoints on every border and planes out of range, held bit-equal to
@@ -197,6 +200,46 @@ def random_case(name: str, real):
             dirv, hb, wb, active, R)
 
 
+def edge_case(name: str, dev) -> tuple:
+    """Crafted planes and keypoints whose pixels land exactly on bin edges.
+    K2: direction 0 (cos 1, sin 0) and bin widths 2 and 4, so that
+    ybin, xbin = offset / width + 1.5 hit -1 and 3 exactly, and
+    orientations on the multiples of 2*pi/8, at 2*pi (hbin 8, which wraps
+    to bin 0) and one ulp under it.  K1: orientations on its 36 bin edges,
+    at 0, 2*pi and one ulp under 2*pi.  A few slots inactive."""
+    S, H, W, K = 2, 96, 128, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    two_pi = torch.tensor(2 * np.pi, dtype=torch.float32, device=dev)
+    under = torch.nextafter(two_pi, torch.zeros_like(two_pi))[None]
+    if name == "orientation_histogram":
+        R = 8
+        step = torch.arange(36, device=dev) + 0.5
+        vals = torch.cat([step * (two_pi / 36), torch.zeros_like(under),
+                          two_pi[None], under])
+    else:
+        R = 19
+        vals = torch.cat([torch.arange(9, device=dev) * (two_pi / 8), under])
+    n = S * H * W
+    ort = vals[torch.arange(n, device=dev) % len(vals)].reshape(S, H, W)
+    mag = torch.rand(S, H, W, generator=g, device=dev) + 0.5
+    i = torch.arange(K, device=dev)
+    s = (i % S).to(torch.int32)
+    y = (R + 2 + (i * 7) % (H - 2 * R - 4)).to(torch.int32)
+    x = (R + 2 + (i * 13) % (W - 2 * R - 4)).to(torch.int32)
+    y[:4] = torch.tensor([1, H - 2, 3, H - 5], dtype=torch.int32)  # borders
+    rad = torch.where(i % 3 == 0, float(R), (i % R + 1).float())
+    hb = torch.full((K,), float(H), device=dev)
+    wb = torch.full((K,), float(W), device=dev)
+    active = i % 9 != 4
+    if name == "orientation_histogram":
+        return (mag, ort, s, y, x, rad, torch.full((K,), 0.02, device=dev),
+                hb, wb, active, R)
+    zero = torch.zeros(K, device=dev)
+    hw = torch.where(i % 2 == 0, 2.0, 4.0).to(dev)
+    return (mag, ort, s, y, x, rad, hw, zero + 1.0, zero, zero, hb, wb,
+            active, R)
+
+
 def kernel_typed(args) -> tuple:
     """``args`` already of the types the kernel takes (f32, int32, bool, all
     contiguous), so that the wrapper's casts are no-ops and a timing sees the
@@ -212,32 +255,34 @@ def kernel_typed(args) -> tuple:
 
 def kernel_phase(batches: dict) -> list[dict]:
     """K1 and K2 against their plain versions on the inputs of a feature
-    batch of each path (``batches``: path label -> captured arguments) and
-    on a random case of the same shapes; timed at the first path's."""
+    batch of each path (``batches``: path label -> captured arguments), on
+    a random case of the same shapes and on the crafted edge case; timed
+    at the first path's."""
     report = []
     for name, wrapper, cuda_attr, plain, replaces in KERNELS:
         cuda = getattr(windows, cuda_attr)
-        errs = []
+        cases = []
         for label, captured in batches.items():
             check(name in captured, f"the {label} path never reached {name}")
             real = captured[name]
-            for case, args in (("path", real),
-                               ("random", random_case(name, real))):
-                a = cuda(*args)
-                b = cuda(*args)
-                p = plain(*args)
-                torch.cuda.synchronize()
-                check(torch.equal(a, b), f"{name} ({label} {case}): two runs "
-                      "differ")
-                err = float((a - p).abs().max())
-                rel = err / max(float(p.abs().max()), 1e-30)
-                print(f"{name} [{label} {case}] K={args[2].shape[0]} "
-                      f"planes={tuple(args[0].shape)} max_abs_err={err:.3e} "
-                      f"rel={rel:.3e} bit-identical repeat=True")
-                check(rel < GATE, f"{name} ({label} {case}): rel err "
-                      f"{rel:.3e} >= {GATE}")
-                if case == "path":
-                    errs.append(err)
+            cases += [(f"{label} path", real),
+                      (f"{label} random", random_case(name, real))]
+        cases.append(("edges", edge_case(name, real[0].device)))
+        errs = []
+        for case, args in cases:
+            a = cuda(*args)
+            b = cuda(*args)
+            p = plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(a, b), f"{name} ({case}): two runs differ")
+            err = float((a - p).abs().max())
+            rel = err / max(float(p.abs().max()), 1e-30)
+            print(f"{name} [{case}] K={args[2].shape[0]} "
+                  f"planes={tuple(args[0].shape)} max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} bit-identical repeat=True")
+            check(rel < GATE, f"{name} ({case}): rel err {rel:.3e} >= {GATE}")
+            if case.endswith("path"):
+                errs.append(err)
         real = next(iter(batches.values()))[name]
         typed = kernel_typed(real)
         ms = median_ms(lambda: cuda(*typed), 50)
@@ -611,7 +656,7 @@ def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
     return launches
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this script measures the card", file=sys.stderr)
         return 1
@@ -627,6 +672,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build_cuda("windows")
     print(f"build: {time.perf_counter() - t0:.2f} s {lib.name}")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line) \
+                or "spill" in line:
+            print(f"  {line.strip()}")
 
     t0 = time.perf_counter()
     u8, truth, perm = headline_inputs()
@@ -645,6 +694,9 @@ def main() -> int:
     report = kernel_phase(batches)
     report.append(slab_phase(batches["main"]["descriptor_histogram"]))
     del batches
+    if kernels_only:
+        print(json.dumps({"kernels": report}))
+        return 0
     reference_phase()
     trans_launches = trans_path(strip, xy)
     launches = main_path(u8, truth, perm)
@@ -663,4 +715,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels"]))

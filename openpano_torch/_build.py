@@ -11,7 +11,9 @@ Two kinds of library, both with a plain C interface loaded through ctypes:
 
 Libraries land in ``openpano_torch/_build/`` (git-ignored), named by a hash
 of their source and flags, so an edited source is rebuilt and a stale one is
-never loaded.  A build writes a temporary file and renames it into place.
+never loaded.  A build writes a temporary file and renames it into place;
+the compiler's output lands beside it (``<library>.log``: for a CUDA source,
+ptxas's registers, shared memory and spills per kernel).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ CROP_SRC = NATIVE / "crop_largest_rect.c"
 PNG_SRC = NATIVE / "png_codec.c"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 CC_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -66,6 +68,7 @@ def _compile(cmd: list[str], out: Path, what: str) -> Path:
     if proc.returncode != 0:
         Path(tmp).unlink(missing_ok=True)
         raise RuntimeError(f"building {what} failed:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return out
 

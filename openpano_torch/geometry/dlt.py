@@ -93,19 +93,20 @@ def affine_dlt(p1, p2, w):
     return H.reshape(*h.shape[:-1], 3, 3)
 
 
+def _norm_scale(p, w, cnt):
+    """sqrt(2 / mean |p|^2) over the points selected by ``w``."""
+    sqrsum = ((p * p).sum(-1) * w).sum(-1) / cnt
+    return torch.sqrt(2.0 / torch.clamp(sqrsum, min=1e-12))
+
+
 def normalized_transform(p1, p2, w, affine: bool):
     """DLT with the reference's scale-only normalization
     (transform_estimate.cc:99-129): each point set is scaled by
     s = sqrt(2 / mean |p|^2) over the selected points, and the fit is
     de-normalized as diag(1/s1, 1/s1, 1) @ Hn @ diag(s2, s2, 1)."""
     cnt = torch.clamp(w.sum(-1), min=1.0)
-
-    def scale(p):
-        sqrsum = ((p * p).sum(-1) * w).sum(-1) / cnt
-        return torch.sqrt(2.0 / torch.clamp(sqrsum, min=1e-12))
-
-    s1 = scale(p1)
-    s2 = scale(p2)
+    s1 = _norm_scale(p1, w, cnt)
+    s2 = _norm_scale(p2, w, cnt)
     Hn = (affine_dlt if affine else perspective_dlt)(
         p1 * s1[..., None, None], p2 * s2[..., None, None], w)
     col = torch.stack([s2, s2, torch.ones_like(s2)], dim=-1)

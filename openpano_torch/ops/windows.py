@@ -119,14 +119,23 @@ def _ori_hist_rows(mag, ort, s, y, x, rad, invden, hb, wb, R: int):
 
 
 
+def desc_hats(ybin, xbin, hbin):
+    """Each pixel's trilinear hats, dense: ``hat(ybin - by)`` [..., 4],
+    ``hat(xbin - bx)`` [..., 4] and, circular in orientation,
+    ``hat(min(d, 8 - d))`` with ``d = |hbin - bo|`` [..., 8]."""
+    hat = lambda d: torch.clamp(1.0 - torch.abs(d), min=0.0)
+    grid4 = torch.arange(DESC_W4, dtype=torch.float32, device=ybin.device)
+    grid8 = torch.arange(DESC_NB, dtype=torch.float32, device=ybin.device)
+    do = torch.abs(hbin[..., None] - grid8)
+    return (hat(ybin[..., None] - grid4), hat(xbin[..., None] - grid4),
+            hat(torch.minimum(do, DESC_NB - do)))
+
+
 def _desc_hist_rows(mag, ort, s, y, x, radius, hw, cos_o, sin_o, dirv, hb, wb,
                     R: int):
     S, H, W = mag.shape
     K = s.shape[0]
     dev = mag.device
-    hat = lambda d: torch.clamp(1.0 - torch.abs(d), min=0.0)
-    grid4 = torch.arange(DESC_W4, dtype=torch.float32, device=dev)
-    grid8 = torch.arange(DESC_NB, dtype=torch.float32, device=dev)
     hb = torch.clamp(hb, max=float(H))
     wb = torch.clamp(wb, max=float(W))
     out = torch.empty(K, DESC_W4 * DESC_W4 * DESC_NB, dtype=torch.float32,
@@ -161,10 +170,7 @@ def _desc_hist_rows(mag, ort, s, y, x, radius, hw, cos_o, sin_o, dirv, hb, wb,
 
         C = idx.shape[0]
         flat = lambda a: a.reshape(C, -1)
-        A = hat(flat(ybin)[:, :, None] - grid4)
-        B = hat(flat(xbin)[:, :, None] - grid4)
-        do = torch.abs(flat(hbin)[:, :, None] - grid8)
-        Co = hat(torch.minimum(do, DESC_NB - do))
+        A, B, Co = desc_hats(flat(ybin), flat(xbin), flat(hbin))
         WAB = (flat(wgt)[:, :, None, None] * A[:, :, :, None]
                * B[:, :, None, :]).reshape(C, -1, DESC_W4 * DESC_W4)
         with full_f32():

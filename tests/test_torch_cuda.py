@@ -76,6 +76,54 @@ def test_kernel_matches_plain_on_card(card, which, R, B):
     assert (got[~c["valid"].cpu()] == 0).all()
 
 
+def _edge_case(which, dev, S=2, H=96, W=128, K=64):
+    """Pixels exactly on bin edges.  Descriptor: direction 0 and bin widths
+    2 and 4 put ybin, xbin = offset / width + 1.5 on -1 and 3 exactly, and
+    orientations on the multiples of 2*pi/8, at 2*pi (hbin 8, wrapping to
+    bin 0) and one ulp under it.  Orientation: its 36 bin edges, 0, 2*pi
+    and one ulp under 2*pi."""
+    R = 8 if which == "ori" else 19
+    two_pi = np.float32(2 * np.pi)
+    under = np.nextafter(two_pi, np.float32(0))
+    if which == "ori":
+        vals = np.r_[(np.arange(36, dtype=np.float32) + np.float32(0.5))
+                     * (two_pi / np.float32(36)), 0, two_pi, under]
+    else:
+        vals = np.r_[np.arange(9, dtype=np.float32) * (two_pi / np.float32(8)),
+                     under]
+    vals = vals.astype(np.float32)
+    rng = np.random.default_rng(21)
+    i = np.arange(K)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return R, dict(
+        mag=t(rng.uniform(0.5, 1.5, (S, H, W)).astype(np.float32)),
+        ort=t(vals[np.arange(S * H * W) % len(vals)].reshape(S, H, W)),
+        s=t((i % S).astype(np.int32)),
+        y=t((R + 2 + (i * 7) % (H - 2 * R - 4)).astype(np.int32)),
+        x=t((R + 2 + (i * 13) % (W - 2 * R - 4)).astype(np.int32)),
+        rad=t(np.where(i % 3 == 0, R, i % R + 1).astype(np.float32)),
+        invden=t(np.full(K, 0.02, np.float32)),
+        hw=t(np.where(i % 2 == 0, 2.0, 4.0).astype(np.float32)),
+        dirv=t(np.zeros(K, np.float32)),
+        wh=t(np.tile(np.float32([W, H]), (K, 1))),
+        valid=t(i % 9 != 4),
+    )
+
+
+@pytest.mark.parametrize("which", ["ori", "desc"])
+def test_kernel_matches_plain_on_bin_edges(card, which):
+    """The crafted edge case on the card against the plain version on the
+    CPU: the same gate, and two launches give the same bits."""
+    R, c = _edge_case(which, card)
+    a, b = _run(which, c, R), _run(which, c, R)
+    torch.cuda.synchronize()
+    want = _run(which, {k: v.cpu() for k, v in c.items()}, R)
+    assert torch.equal(a, b)
+    err = (a.cpu().double() - want.double()).abs().max() / want.abs().max()
+    assert float(err) < TOL
+    assert (a.cpu()[~c["valid"].cpu()] == 0).all()
+
+
 @pytest.mark.parametrize("S,H,W,WR,B", [(3, 100, 300, 32, None),
                                         (4, 61, 397, 56, None),
                                         (3, 50, 140, 24, 2)])

@@ -168,3 +168,79 @@ def test_cpu_route_counts_no_launch():
     _desc_torch(mag, ort, kp, 8)
     assert (twin.orientation_histogram.launches,
             twin.descriptor_histogram.launches) == before
+
+
+def _corner_terms(wgt, ybin, xbin, hbin):
+    """The rule the card's K2 adds by, in numpy f32: per pixel only the
+    corners floor(.) and floor(.) + 1 of ybin and xbin inside [0, 3] and of
+    hbin mod 8 (circular), each term wgt * hy * hx * ho with the dense
+    hats' expressions.  [P, 4, 4, 8], zero at every other corner."""
+    f32 = np.float32
+    hat = lambda d: np.maximum(f32(0), f32(1) - np.abs(d))
+    out = np.zeros((len(wgt), 4, 4, 8), f32)
+    for i, (w, yb, xb, hb) in enumerate(zip(wgt, ybin, xbin, hbin)):
+        y0, x0, o0 = (int(np.floor(v)) for v in (yb, xb, hb))
+        for by in {y0, y0 + 1} & {0, 1, 2, 3}:
+            for bx in {x0, x0 + 1} & {0, 1, 2, 3}:
+                for bo in {o0 % 8, (o0 + 1) % 8}:
+                    d = np.abs(hb - f32(bo))
+                    out[i, by, bx, bo] = (w * hat(yb - f32(by))
+                                          * hat(xb - f32(bx))
+                                          * hat(np.minimum(d, f32(8) - d)))
+    return out
+
+
+def _edge_bins():
+    """Bin coordinates of the crafted edge case: keypoint direction 0 and
+    bin widths 2 and 4, so that ybin, xbin = offset / width + 1.5 land
+    exactly on -1 and 3 (and every integer between), computed with the
+    plain version's f32 ops; orientations on multiples of 2*pi/8, at 2*pi
+    (hbin 8, the wrap to bin 0) and one ulp under it."""
+    d = torch.arange(-19, 20, dtype=torch.float32)
+    fy, fx = (g.reshape(-1) for g in torch.meshgrid(d, d, indexing="ij"))
+    co, si = torch.cos(torch.zeros(())), torch.sin(torch.zeros(()))
+    two_pi = torch.tensor(2 * np.pi, dtype=torch.float32)
+    ort = torch.cat([torch.arange(9) * (two_pi / 8),
+                     torch.nextafter(two_pi, torch.zeros(()))[None]])
+    ybin, xbin, hbin = [], [], []
+    for hw in (2.0, 4.0):
+        yb = (-fx * si + fy * co) / hw + twin.DESC_W4 / 2 - 0.5
+        xb = (fx * co + fy * si) / hw + twin.DESC_W4 / 2 - 0.5
+        keep = (yb >= -1) & (yb <= 3) & (xb >= -1) & (xb <= 3)
+        ybin.append(yb[keep])
+        xbin.append(xb[keep])
+        o = ort[torch.arange(int(keep.sum())) % len(ort)]
+        hbin.append(o * (twin.DESC_NB / (2.0 * np.pi)))
+    return torch.cat(ybin), torch.cat(xbin), torch.cat(hbin)
+
+
+@pytest.mark.parametrize("case", ["edges", "random"])
+def test_descriptor_corner_rule_equals_dense_hats(case):
+    """K2 on the card adds only the two corners per axis that can carry
+    weight (circular in orientation, spatial corners past the edges
+    dropped).  That rule's terms equal the dense hats of the plain version
+    term by term, bit for bit, on the bin edges and on random bins."""
+    if case == "edges":
+        ybin, xbin, hbin = _edge_bins()
+        assert {-1.0, 3.0} <= set(ybin.tolist()) & set(xbin.tolist())
+        h = set(hbin.tolist())
+        assert 0.0 in h and max(h) >= 8.0 and any(7.99 < v < 8.0 for v in h)
+    else:
+        rng = np.random.default_rng(12)
+        n = 3000
+        near = rng.integers(-1, 4, n) + rng.choice([-1, 0, 1], n) * 2e-7
+        ybin = torch.from_numpy(np.where(
+            rng.uniform(size=n) < 0.3, near, rng.uniform(-1, 3, n)
+        ).clip(-1, 3).astype(np.float32))
+        xbin = torch.from_numpy(rng.uniform(-1, 3, n).astype(np.float32))
+        hbin = torch.from_numpy(np.where(
+            rng.uniform(size=n) < 0.3, rng.integers(0, 9, n) * 1.0 - 4e-7,
+            rng.uniform(0, 8, n)).clip(0, 8).astype(np.float32))
+    wgt = torch.from_numpy(np.random.default_rng(13).uniform(
+        0.1, 2, len(ybin)).astype(np.float32))
+    A, B, Co = twin.desc_hats(ybin, xbin, hbin)
+    dense = (wgt[:, None, None, None] * A[:, :, None, None]
+             * B[:, None, :, None] * Co[:, None, None, :])
+    sparse = _corner_terms(*(v.numpy() for v in (wgt, ybin, xbin, hbin)))
+    np.testing.assert_array_equal(sparse, dense.numpy())
+    assert ((sparse > 0).sum((1, 2, 3)) <= 8).all()
