@@ -26,12 +26,15 @@ Phases, each fatal on failure:
      alone (arguments cast beforehand), the plain version's time, the
      library call's where one PyTorch call computes the same function, and
      the least time the card could take;
-  5. references: a 4-view strip (TRANS) and 5 rotating views (the default
-     Config) stitched on the card and on the CPU (the plain versions, which
-     the tests hold to the JAX package) must agree; the bundle adjustment
-     of the latter on the card (BA_ON_HOST=False) and on the host must
-     agree, and two card runs bit for bit, as must two runs of the card's
+  5. references: a 4-view strip (TRANS), 5 rotating views (the default
+     Config) and a 6-view sweep in CYLINDER mode with MULTIBAND=2 stitched
+     on the card and on the CPU (the plain versions, which the tests hold
+     to the JAX package) must agree; the bundle adjustment of the rotating
+     views on the card (BA_ON_HOST=False) and on the host must agree, and
+     two card runs bit for bit, as must two runs of the card's
      normal-equation assembly at 5, 38 (the headline's) and 100 cameras;
+     BRIEF descriptors and matches of two headline views on the card must
+     equal the CPU's bit for bit;
   6. TRANS path: stitch_images in TRANS mode over the strip, with every
      kernel's launch count read around this run alone; every adjacent pair
      must connect, the canvas must have the expected size, each pairwise
@@ -42,7 +45,14 @@ Phases, each fatal on failure:
      every pair adjacent in the sweep must connect, the canvas must be
      within 5% of the size the true focal and sweep give, and the cameras
      must pass bench.py's quality gate (mean reprojection error of the
-     adjacent pairs against the true homographies under 2.5 px).
+     adjacent pairs against the true homographies under 2.5 px);
+  8. multiband path: the main path again with MULTIBAND=2 (bench.py's
+     multiband case), counts read around this run alone: the main path's
+     gates, the linear canvas's size, and NCC above 0.97 against it;
+  9. CYLINDER path: the headline views in sweep order in CYLINDER mode,
+     FOCAL_LENGTH set so that the cylinder's radius is the views' true
+     focal, counts read around this run alone: the canvas within 5% of the
+     size the true yaws give, a valid fraction above 0.3, a non-empty crop.
 The second-to-last line is the kernel report as JSON; the last line is the
 device record.
 """
@@ -65,9 +75,13 @@ from openpano_torch import _build  # noqa: E402
 from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
 from openpano_torch.camera.estimator import estimate_cameras  # noqa: E402
 from openpano_torch.ops import windows  # noqa: E402
+from openpano_torch.ops.imgproc import crop_with_mask  # noqa: E402
+from openpano_torch.sift import brief  # noqa: E402
+from openpano_torch.stitch.multiband import _roi_sizes  # noqa: E402
 from openpano_torch.stitch.render import plan_render  # noqa: E402
 from openpano_torch.stitch.stitcherbase import FEATURE_BATCH, \
-    compute_features  # noqa: E402
+    compute_features, grey_u8  # noqa: E402
+from openpano_torch.stitch.warp import make_projector  # noqa: E402
 from openpano_torch.synth import gt_pair_homography, \
     procedural_scene_large, render_views, strip_views  # noqa: E402
 from openpano_torch.utils import prng, timer  # noqa: E402
@@ -88,6 +102,8 @@ SMALL = dict(RANSAC_ITERATIONS=400, MAX_CAND_PER_OCTAVE=1024,
              MAX_KP_PER_IMAGE=1024, MAX_MATCHES_PER_PAIR=512,
              SIFT_WORKING_SIZE=400)
 TRANS = dict(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True)
+CYLINDER = dict(CYLINDER=True, ESTIMATE_CAMERA=False, ORDERED_INPUT=True)
+MB_NCC_LIMIT = 0.97             # bench.py:173, multiband against linear
 
 # name, wrapper (holds the launch count), kernel, plain version, TPU kernel
 KERNELS = (
@@ -405,16 +421,23 @@ def compare_card_cpu(label: str, views: np.ndarray, cfg: Config):
     (gc, gv, gi), (cc, cv, ci) = out["cuda"], out["cpu"]
     check(gc.shape == cc.shape, f"{label}: canvas {gc.shape} vs {cc.shape}")
     kdiff = np.abs(gi["kpt_counts"] - ci["kpt_counts"]) / ci["kpt_counts"]
-    pairs = lambda i: set(zip(*np.nonzero(np.triu(i["graph"].conf > 0, 1))))
-    m = gv & cv
-    a, b = gc[m] - gc[m].mean(), cc[m] - cc[m].mean()
-    ncc = float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+    ncc = canvas_ncc(gc, gv, cc, cv)
     agree = float((gv == cv).mean())
     print(f"reference [{label}]: canvas {gc.shape[:2]}, keypoints card "
           f"{gi['kpt_counts'].tolist()} cpu {ci['kpt_counts'].tolist()}, "
-          f"pairs {sorted(pairs(gi))}, valid agree {agree:.6f}, NCC {ncc:.6f}")
+          f"valid agree {agree:.6f}, NCC {ncc:.6f}")
     check(kdiff.max() <= 0.02, f"{label}: keypoint counts differ by >2%")
-    check(pairs(gi) == pairs(ci), f"{label}: connected pairs differ")
+    if "graph" in gi:
+        pairs = lambda i: set(zip(*np.nonzero(np.triu(i["graph"].conf > 0,
+                                                      1))))
+        print(f"reference [{label}]: pairs {sorted(pairs(gi))}")
+        check(pairs(gi) == pairs(ci), f"{label}: connected pairs differ")
+    if "hfactor" in gi:
+        print(f"reference [{label}]: h-factor card {gi['hfactor']} "
+              f"({gi['trials']} trials, slope {gi['slope']:.6f}) cpu "
+              f"{ci['hfactor']} ({ci['trials']} trials, slope "
+              f"{ci['slope']:.6f})")
+        check(gi["hfactor"] == ci["hfactor"], f"{label}: h-factors differ")
     check(agree >= 0.999 and ncc >= 0.999, f"{label}: canvases disagree")
     if "cams" in gi:
         rel = np.abs(gi["cams"].focal / ci["cams"].focal - 1).max()
@@ -427,9 +450,18 @@ def compare_card_cpu(label: str, views: np.ndarray, cfg: Config):
     return gi
 
 
+def canvas_ncc(a, va, b, vb) -> float:
+    """Normalized cross-correlation of two canvases over the pixels valid
+    in both."""
+    m = va & vb
+    x, y = a[m] - a[m].mean(), b[m] - b[m].mean()
+    return float((x * y).sum() / np.sqrt((x * x).sum() * (y * y).sum()))
+
+
 def reference_phase():
-    """The TRANS strip and the default-Config rotating views on the card
-    and on the CPU; the bundle adjustment on the card and on the host."""
+    """The TRANS strip, the default-Config rotating views and a CYLINDER +
+    multiband sweep on the card and on the CPU; the bundle adjustment on
+    the card and on the host."""
     views = np.round(strip_views(4, 320, 240, overlap=0.5, seed=0) * 255
                      ).astype(np.uint8)
     gi = compare_card_cpu("TRANS strip", views, Config(**TRANS, **SMALL))
@@ -461,6 +493,47 @@ def reference_phase():
           "two card runs of the bundle adjustment differ")
     for n in (5, N_VIEWS, 100):
         assembly_repeat(n)
+
+    # 6 views in sweep order: the flat-projection multiband blend and the
+    # perspective correction (seed 2: the scene of tests/test_torch_cylinder)
+    cyl, _ = render_views(procedural_scene_large(600, 2400, seed=2), 6,
+                          out_w=320, out_h=240, hfov_deg=32, overlap=0.5)
+    cyl = np.round(cyl * 255).astype(np.uint8)
+    compare_card_cpu("CYLINDER + MULTIBAND=2", cyl,
+                     Config(**CYLINDER, MULTIBAND=2, **SMALL))
+
+
+def brief_phase(u8: np.ndarray, perm: np.ndarray):
+    """BRIEF on two headline views adjacent in the sweep, at the keypoints
+    the card's features give them: descriptors and match indices on the
+    card equal the CPU's bit for bit."""
+    inv_perm = np.argsort(perm)
+    pair = u8[[inv_perm[0], inv_perm[1]]]
+    cfg = Config(**HEADLINE)
+    imgs = torch.from_numpy(pair).cuda()
+    feats = compute_features(imgs, cfg)
+    grey = grey_u8(imgs)
+    pts = feats.pos + torch.tensor([VIEW_W / 2.0, VIEW_H / 2.0], device="cuda")
+    pat = brief.gen_brief_pattern(0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g, p, v = (t.to(dev) for t in (grey, pts, feats.valid))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        da, va = brief.compute_brief(g[0], p[0], v[0], pat.offsets, pat.s)
+        db, vb = brief.compute_brief(g[1], p[1], v[1], pat.offsets, pat.s)
+        m = brief.match_brief(da, va, db, vb, cfg)
+        torch.cuda.synchronize()
+        out[dev] = ([t.cpu() for t in (da, va, db, vb, *m)],
+                    time.perf_counter() - t0)
+    (card, t_card), (cpu, t_cpu) = out["cuda"], out["cpu"]
+    same = all(torch.equal(a, b) for a, b in zip(card, cpu))
+    print(f"BRIEF: {int(card[1].sum())} / {int(card[3].sum())} descriptors of "
+          f"{feats.valid.shape[1]} slots, {int(card[-1][0])} matches; card "
+          f"equals the CPU bit for bit: {same} (card {t_card:.3f} s, CPU "
+          f"{t_cpu:.3f} s, descriptors and matching)")
+    check(same, "BRIEF on the card differs from the CPU")
+    check(int(card[-1][0]) > 0, "BRIEF: no match between adjacent views")
 
 
 def assembly_repeat(n: int):
@@ -498,23 +571,37 @@ def read_counts() -> dict:
             [(n, w) for n, w, _, _, _ in KERNELS] + [SLAB[:2]]}
 
 
-def trans_path(u8: np.ndarray, xy: np.ndarray) -> dict:
-    """stitch_images in TRANS mode over the strip, with its gates."""
-    cfg = Config(**TRANS)
+def drive(label: str, u8: np.ndarray, cfg: Config, key=None):
+    """stitch_images once over ``u8``, u8 out, with every launch count set
+    to 0 just before and read just after; prints the wall, the stages, the
+    peak device memory and the launches, and fails if a kernel of the path
+    never launched.  Returns (canvas, valid, info, launches); info holds
+    the stage times as ``stages_s``."""
     reset_counts()
     timer.reset()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     info = {}
-    canvas, valid = stitch_images(u8, cfg, output="u8", info_out=info)
+    canvas, valid = stitch_images(u8, cfg, key=key, output="u8",
+                                  info_out=info)
     wall = time.perf_counter() - t0
     launches = read_counts()
     stages = {k: round(s, 4) for k, (_, s) in timer.totals().items()}
-    print(f"TRANS path: {wall:.3f} s wall, {N_VIEWS / wall:.2f} img/s")
-    print(f"TRANS stages_s: {json.dumps(stages)}")
-    print(f"TRANS kernels launched: {json.dumps(launches)}")
+    info["stages_s"] = stages
+    print(f"{label}: {wall:.3f} s wall, {len(u8) / wall:.2f} img/s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{label} stages_s: {json.dumps(stages)}")
+    print(f"{label} kernels launched: {json.dumps(launches)}")
     check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
-          "TRANS: a kernel of the path never launched")
+          f"{label}: a kernel of the path never launched")
+    return canvas, valid, info, launches
+
+
+def trans_path(u8: np.ndarray, xy: np.ndarray) -> dict:
+    """stitch_images in TRANS mode over the strip, with its gates."""
+    cfg = Config(**TRANS)
+    canvas, valid, info, launches = drive("TRANS path", u8, cfg)
 
     conf = info["graph"].conf
     check(all(conf[i, i + 1] > 0 for i in range(N_VIEWS - 1)),
@@ -606,32 +693,20 @@ def camera_error(homos: np.ndarray, truth: dict, perm: np.ndarray) -> float:
     return float(np.mean(errs))
 
 
-def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
-    """stitch_images with the default Config over the headline set."""
-    cfg = Config(**HEADLINE)
+def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
+              multiband: int = 0):
+    """stitch_images with the default Config (and ``multiband`` levels)
+    over the headline set, with the main path's gates.  Returns (canvas,
+    valid, info, launches)."""
+    cfg = Config(MULTIBAND=multiband, **HEADLINE)
     key = prng.key((0, 1), "cuda")                   # PRNGKey(1)
-    reset_counts()
-    timer.reset()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    info = {}
-    canvas, valid = stitch_images(u8, cfg, key=key, output="u8",
-                                  info_out=info)
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    stages = {k: round(s, 4) for k, (_, s) in timer.totals().items()}
-    print(f"main path: {wall:.3f} s wall, {N_VIEWS / wall:.2f} img/s, peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"stages_s: {json.dumps(stages)}")
+    label = "multiband path" if multiband else "main path"
+    canvas, valid, info, launches = drive(label, u8, cfg, key)
     print(f"bundle adjustment: {info['lm_iters']} LM iterations in "
           f"{info['lm_time_s']:.3f} s, ba_rms_px {info['ba_rms_px']:.4f} over "
           f"{info['ba_pairs']} pairs, {info['ba_points']} points; "
           f"{info['connected_pairs']} connected pairs, "
           f"{info['total_inliers']} inliers")
-    print(f"kernels launched: {json.dumps(launches)}")
-    check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
-          "a kernel of the main path never launched")
 
     inv_perm = np.argsort(perm)
     conf = info["graph"].conf
@@ -653,6 +728,71 @@ def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
     check(abs(canvas.shape[0] - want_h) <= 0.05 * want_h, "canvas height off")
     check(valid.mean() > 0.3, "canvas mostly empty")
     check(reproj < REPROJ_LIMIT_PX, f"camera quality gate: {reproj:.3f} px")
+    return canvas, valid, info, launches
+
+
+def multiband_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
+                   linear: tuple) -> dict:
+    """The main path with MULTIBAND=2 (bench.py:147-173): its gates, the
+    linear canvas's size, and NCC above 0.97 against the linear canvas."""
+    canvas, valid, info, launches = main_path(u8, truth, perm, multiband=2)
+    lin, lin_valid, lin_info = linear
+    plan = info["plan"]
+    print(f"blend stage: multiband {info['stages_s']['blend']} s ("
+          f"{len(plan.items)} render items of {len(plan.whs)} views, RoI "
+          f"planes {_roi_sizes(plan)}), linear "
+          f"{lin_info['stages_s']['blend']} s")
+    check(canvas.shape == lin.shape, f"multiband canvas {canvas.shape} vs "
+          f"linear {lin.shape}")
+    ncc = canvas_ncc(canvas.astype(np.float64), valid,
+                     lin.astype(np.float64), lin_valid)
+    print(f"multiband against linear: NCC {ncc:.6f} over "
+          f"{(valid & lin_valid).mean():.4f} of the canvas, valid agree "
+          f"{(valid == lin_valid).mean():.6f}")
+    check(ncc > MB_NCC_LIMIT, f"multiband NCC against linear {ncc:.4f}")
+    return launches
+
+
+def expected_cylinder_canvas(truth: dict, inv_perm: np.ndarray,
+                             cfg: Config) -> tuple[int, int]:
+    """(w, h) of the flat canvas the true yaws give in CYLINDER mode: the
+    projector of h-factor 1 warps each view to out_w x out_h, and view k
+    sits r * (yaw_k - yaw_mid) to the side of the middle view."""
+    proj = make_projector(VIEW_W, VIEW_H, 1.0, cfg)
+    yaws = truth["yaws"][inv_perm]
+    shift = proj.r * (yaws - yaws[N_VIEWS >> 1])
+    homos = np.stack([np.array([[1.0, 0.0, d], [0.0, 1.0, 0.0],
+                                [0.0, 0.0, 1.0]]) for d in shift])
+    whs = np.repeat([[float(proj.out_w), float(proj.out_h)]], N_VIEWS, 0)
+    plan = plan_render(homos, whs, N_VIEWS >> 1, "flat", cfg.MAX_OUTPUT_SIZE)
+    return plan.out_w, plan.out_h
+
+
+def cylinder_path(u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
+    """stitch_images in CYLINDER mode over the headline views in sweep
+    order, the cylinder's radius the views' true focal."""
+    inv_perm = np.argsort(perm)
+    focal = truth["focal_px"] * 43.266 / np.hypot(VIEW_W, VIEW_H)
+    cfg = Config(**CYLINDER, FOCAL_LENGTH=float(focal), **HEADLINE)
+    canvas, valid, info, launches = drive(
+        "CYLINDER path", u8[inv_perm], cfg, prng.key((0, 1), "cuda"))
+    want_w, want_h = expected_cylinder_canvas(truth, inv_perm, cfg)
+    crop = crop_with_mask(canvas, valid)
+    print(f"CYLINDER: FOCAL_LENGTH {focal:.4f}, h-factor {info['hfactor']} "
+          f"after {info['trials']} trials (slope {info['slope']:.6f}), warped "
+          f"views {info['plan'].whs[0].astype(int).tolist()}, canvas "
+          f"{canvas.shape[1]}x{canvas.shape[0]} (expected {want_w}x{want_h}), "
+          f"valid fraction {valid.mean():.4f}, crop {crop.shape[1]}x"
+          f"{crop.shape[0]}, keypoints per view "
+          f"{int(info['kpt_counts'].min())}..{int(info['kpt_counts'].max())}")
+    check(canvas.dtype == np.uint8 and canvas.shape[2] == 3,
+          "CYLINDER: canvas is not u8 RGB")
+    check(abs(canvas.shape[1] - want_w) <= 0.05 * want_w,
+          "CYLINDER: canvas width off")
+    check(abs(canvas.shape[0] - want_h) <= 0.05 * want_h,
+          "CYLINDER: canvas height off")
+    check(valid.mean() > 0.3, "CYLINDER: canvas mostly empty")
+    check(crop.size > 0, "CYLINDER: empty crop")
     return launches
 
 
@@ -666,7 +806,7 @@ def main(kernels_only: bool = False) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -697,12 +837,21 @@ def main(kernels_only: bool = False) -> int:
     if kernels_only:
         print(json.dumps({"kernels": report}))
         return 0
+    t0 = time.perf_counter()
     reference_phase()
+    brief_phase(u8, perm)
+    print(f"references and BRIEF: {time.perf_counter() - t0:.1f} s")
     trans_launches = trans_path(strip, xy)
-    launches = main_path(u8, truth, perm)
+    linear = main_path(u8, truth, perm)
+    launches = linear[-1]
+    mb_launches = multiband_path(u8, truth, perm, linear[:3])
+    del linear
+    cyl_launches = cylinder_path(u8, truth, perm)
     for entry in report:
-        entry["launches"] = launches[entry["name"]]
-        entry["trans_launches"] = trans_launches[entry["name"]]
+        k = entry["name"]
+        entry.update(launches=launches[k], trans_launches=trans_launches[k],
+                     multiband_launches=mb_launches[k],
+                     cylinder_launches=cyl_launches[k])
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": report}))
@@ -710,7 +859,7 @@ def main(kernels_only: bool = False) -> int:
     used = [i for i in range(torch.cuda.device_count())
             if torch.cuda.memory_stats(i).get("allocated_bytes.all.peak", 0)]
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": len(used)}}))
+        "platform": "gpu", "kind": kind, "count": len(used)}}))
     return 0
 
 

@@ -3,12 +3,13 @@ kernels for Hopper (sm_90a).
 
 A port of ``openpano_tpu`` (the JAX reference, which stays unchanged beside
 it).  This package imports neither JAX nor anything of ``openpano_tpu``.  It
-runs the general stitcher in every mode but CYLINDER — the default
-ESTIMATE_CAMERA mode (SIFT features, all-pairs 2-NN matching, perspective
-RANSAC, camera estimation with the incremental bundle adjustment, the
-spherical linear blend), TRANS and the naive flat mode — on the card; the
-CPU runs the kernels' plain versions when asked for (``device="cpu"``),
-which is what the parity tests do.
+runs every stitching mode on one device — the default ESTIMATE_CAMERA mode
+(SIFT features, all-pairs 2-NN matching, perspective RANSAC, camera
+estimation with the incremental bundle adjustment, the spherical blend),
+TRANS, the naive flat mode and CYLINDER (cylindrical pre-warp, h-factor
+search, affine chain, perspective correction) — with the linear or the
+multiband blender, on the card; the CPU runs the kernels' plain versions
+when asked for (``device="cpu"``), which is what the parity tests do.
 """
 
 from .config import DEFAULT, Config
@@ -22,17 +23,22 @@ def stitch_images(imgs, cfg: Config | None = None, key=None,
                   info_out: dict | None = None):
     """Stitch an [N, H, W, 3] image stack (uint8, or float32 in [0, 1]).
 
-    Runs on the card unless ``device`` names another; raises when there is
-    no card and none was named.  CYLINDER and MULTIBAND > 0 are not ported
-    yet and raise NotImplementedError.  Returns the blended f32 canvas, or
+    Dispatches on the mode like the reference's work() (main.cc:205-235):
+    CYLINDER to the cylinder stitcher, the rest to the general one.  Runs
+    on the card unless ``device`` names another; raises when there is no
+    card and none was named.  Returns the blended f32 canvas, or
     ``(canvas_u8, valid_mask)`` with ``output="u8"``.  ``info_out`` (a dict)
-    collects run metadata: keypoint counts, the match graph, the cameras
-    and bundle adjustment statistics, the homographies and the render
-    plan."""
-    from .stitch.stitcher import stitch
-
-    return stitch(imgs, cfg or DEFAULT, key, output=output, device=device,
-                  info_out=info_out)
+    collects run metadata: keypoint counts, the homographies and the render
+    plan; the match graph, the cameras and bundle adjustment statistics in
+    the general modes; the chosen h-factor, its slope and the number of
+    trials in CYLINDER mode."""
+    cfg = cfg or DEFAULT
+    if cfg.CYLINDER:
+        from .stitch.cylstitcher import stitch_cylinder as run
+    else:
+        from .stitch.stitcher import stitch as run
+    return run(imgs, cfg, key, output=output, device=device,
+               info_out=info_out)
 
 
 def stitch_files(paths, cfg: Config | None = None, out: str | None = None,

@@ -123,6 +123,12 @@ def _match_index_pairs(desc, valid, ii, jj, cfg: Config, chunk: int):
     return MatchResult(*(torch.cat(f, dim=0) for f in zip(*parts)))
 
 
+def _chunk_for(K: int) -> int:
+    """Pairs per batch that keep the live [K, K] f32 distance matrices
+    within ~1.5 GiB."""
+    return max(1, int((1.5 * 2**30) // (K * K * 4)))
+
+
 def match_all_pairs(desc: torch.Tensor, valid: torch.Tensor,
                     cfg: Config) -> MatchResult:
     """All C(n,2) unordered pairs (reference: Stitcher::pairwise_match,
@@ -138,11 +144,21 @@ def match_ring_pairs(desc: torch.Tensor, valid: torch.Tensor,
     path of Stitcher::linear_pairwise_match (stitch/stitcher.cc:116-136),
     where the wrap pair is allowed to fail.  Chunked so that the live
     distance matrices stay within ~1.5 GiB."""
-    n, K = desc.shape[0], desc.shape[1]
-    chunk = max(1, int((1.5 * 2**30) // (K * K * 4)))
+    n = desc.shape[0]
     ii = list(range(n))
     jj = [(i + 1) % n for i in ii]
-    return _match_index_pairs(desc, valid, ii, jj, cfg, chunk=chunk)
+    return _match_index_pairs(desc, valid, ii, jj, cfg,
+                              chunk=_chunk_for(desc.shape[1]))
+
+
+def match_adjacent_pairs(desc: torch.Tensor, valid: torch.Tensor,
+                         cfg: Config) -> MatchResult:
+    """Only the n-1 (i, i+1) pairs of ordered input, no wrap pair
+    (reference: Stitcher::linear_pairwise_match, stitch/stitcher.cc:116-136,
+    as CylinderStitcher uses it).  Chunked like :func:`match_ring_pairs`."""
+    ii = list(range(desc.shape[0] - 1))
+    return _match_index_pairs(desc, valid, ii, [i + 1 for i in ii], cfg,
+                              chunk=_chunk_for(desc.shape[1]))
 
 
 def pair_indices(n: int) -> tuple[list[int], list[int]]:

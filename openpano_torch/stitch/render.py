@@ -2,7 +2,8 @@
 
 Reference: stitch/stitcher_image.{hh,cc} (ConnectedImages) and
 stitch/blender.cc (LinearBlender); counterpart of
-``openpano_tpu/stitch/render.py``.
+``openpano_tpu/stitch/render.py``.  ``blend`` hands a multiband run to
+``multiband.py``.
 
 Host side (``plan_render``, numpy): project 400 sampled border points of each
 image through its homography, take per-image and global bboxes
@@ -317,6 +318,18 @@ def blend_linear(imgs: torch.Tensor, plan: RenderPlan,
     has = wfull > 0
     out = full / torch.where(has, wfull, 1.0)[..., None]
     return torch.where(has[..., None], out, INVALID)
+
+
+def blend(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,
+          multiband: int) -> torch.Tensor:
+    """Blender dispatch (ConnectedImages::blend, stitcher_image.cc:131-136):
+    the multiband blender with ``multiband`` levels when it is > 0, else
+    the linear one."""
+    if multiband > 0:
+        from .multiband import blend_multiband
+
+        return blend_multiband(imgs, plan, multiband)
+    return blend_linear(imgs, plan, ordered)
 
 
 def f32_to_u8(canvas: torch.Tensor):

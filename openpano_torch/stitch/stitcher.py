@@ -1,12 +1,11 @@
 """General stitcher: ESTIMATE_CAMERA (the default), TRANS and the naive
-flat mode.
+flat mode; CYLINDER mode is ``cylstitcher.py``.
 
 Reference: stitch/stitcher.{hh,cc} (Stitcher::build, stitcher.cc:32-63);
 counterpart of ``openpano_tpu/stitch/stitcher.py`` on one device.  Pipeline:
 features -> all-pairs (or ordered ring) matching + RANSAC -> camera
 estimation with the incremental bundle adjustment (or homography chaining)
--> spherical (or flat) render plan -> linear blend.  CYLINDER and MULTIBAND
-are not ported yet: ``stitch`` refuses them.
+-> spherical (or flat) render plan -> linear (or multiband) blend.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from ..match.matcher import MatchResult, match_all_pairs, match_ring_pairs, \
 from ..sift.descriptor import Features
 from ..utils import prng
 from ..utils.timer import total_timer
-from .render import blend_linear, f32_to_u8, plan_render
+from .render import blend, f32_to_u8, plan_render
 from .stitcherbase import compute_features
 
 
@@ -147,19 +146,6 @@ def _build_linear_simple(graph: PairwiseGraph, n: int, mid: int,
     return M[None] @ homos
 
 
-def check_supported(cfg: Config) -> Config:
-    """Refuse the configurations whose code is not ported yet, naming the
-    ROADMAP item that brings it."""
-    cfg.validate()
-    if cfg.CYLINDER:
-        raise NotImplementedError(
-            "CYLINDER mode is not ported yet (ROADMAP Queue 1, item 13)")
-    if cfg.MULTIBAND > 0:
-        raise NotImplementedError(
-            "MULTIBAND blending is not ported yet (ROADMAP Queue 1, item 12)")
-    return cfg
-
-
 def resolve_device(device) -> torch.device:
     """The card unless the caller names another device; no silent CPU."""
     if device is None:
@@ -171,8 +157,10 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def _prologue(cfg: Config, output: str, key, device):
-    check_supported(cfg)
+def prologue(cfg: Config, output: str, key, device):
+    """Validate the call; the device and the key (PRNGKey(0) by default) on
+    it."""
+    cfg.validate()
     if output not in ("f32", "u8"):
         raise ValueError(f"output must be 'f32' or 'u8', not {output!r}")
     dev = resolve_device(device)
@@ -191,7 +179,7 @@ def stitch(imgs, cfg: Config, key=None, output: str = "f32", device=None,
     counts, the match graph, ``connected_pairs``, ``total_inliers``, the
     cameras (``cams``) and the bundle adjustment's statistics in
     ESTIMATE_CAMERA mode, the homographies and the render plan."""
-    dev, key = _prologue(cfg, output, key, device)
+    dev, key = prologue(cfg, output, key, device)
     imgs = torch.as_tensor(np.asarray(imgs) if not torch.is_tensor(imgs)
                            else imgs)
     n, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
@@ -215,7 +203,7 @@ def stitch_hetero(imgs_list, cfg: Config, key=None, output: str = "f32",
     largest shape with the INVALID sentinel, which sampling carries through
     (Color::NO).  imgs_list: [Hi, Wi, 3] uint8 or float32 arrays.  Returns
     like :func:`stitch`."""
-    dev, key = _prologue(cfg, output, key, device)
+    dev, key = prologue(cfg, output, key, device)
     n = len(imgs_list)
     imgs_list = [np.asarray(im) for im in imgs_list]
     whs_np = np.asarray(
@@ -292,12 +280,17 @@ def _stitch_core(imgs: torch.Tensor, feats: Features, whs_np: np.ndarray,
         src = imgs.to(torch.float32)
         if imgs.dtype == torch.uint8:
             src = src / 255.0
-        canvas = blend_linear(src, plan, ordered=cfg.ORDERED_INPUT)
-        if output == "u8":
-            u8, valid = f32_to_u8(canvas)
-            result = (u8.cpu().numpy(), valid.cpu().numpy())
-        else:
-            result = canvas.cpu().numpy()
+        canvas = blend(src, plan, ordered=cfg.ORDERED_INPUT,
+                       multiband=cfg.MULTIBAND)
+        result = to_output(canvas, output)
     if info_out is not None:
         info_out.update(homos=homos, plan=plan)
     return result
+
+
+def to_output(canvas: torch.Tensor, output: str):
+    """The f32 canvas as host numpy, or ``(canvas_u8, valid)`` for "u8"."""
+    if output == "u8":
+        u8, valid = f32_to_u8(canvas)
+        return u8.cpu().numpy(), valid.cpu().numpy()
+    return canvas.cpu().numpy()

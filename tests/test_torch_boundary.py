@@ -81,10 +81,11 @@ def test_kernel_wrappers_never_take_plain_path_on_card():
 @pytest.mark.parametrize("module", [
     "camera/rotation.py", "camera/camera.py", "camera/bundle_adjuster.py",
     "camera/banded.py", "camera/estimator.py", "io/image.py",
-    "stitch/stitcher.py", "ops/windows.py"])
+    "stitch/stitcher.py", "ops/windows.py", "stitch/warp.py",
+    "stitch/cylstitcher.py", "stitch/multiband.py", "sift/brief.py"])
 def test_slice_modules_are_checked(module):
-    """The camera stack, the image IO and the stitcher are among the files
-    the import check above parses."""
+    """The camera stack, the image IO, the stitchers, the multiband blender
+    and BRIEF are among the files the import check above parses."""
     assert ROOT / "openpano_torch" / module in _port_files()
 
 

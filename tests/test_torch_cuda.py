@@ -152,3 +152,63 @@ def test_slab_kernel_equals_plain_on_card(card, S, H, W, WR, B):
     for g, r, w in zip(got, again, want):
         assert torch.equal(g, r)
         assert torch.equal(g.reshape(w.shape), w)
+
+
+def test_cylinder_multiband_stitch_card_equals_cpu(card):
+    """A small CYLINDER + MULTIBAND=2 stitch (6 views of 320x240, u8) on the
+    card and on the CPU: the same h-factor and canvas size, valid masks
+    agreeing on >= 99.9% of pixels, NCC >= 0.999."""
+    from openpano_torch import Config, stitch_images
+    from openpano_torch.synth import procedural_scene_large, render_views
+
+    views, _ = render_views(procedural_scene_large(600, 2400, seed=2), 6,
+                            out_w=320, out_h=240, hfov_deg=32, overlap=0.5)
+    u8 = np.round(views * 255).astype(np.uint8)
+    cfg = Config(CYLINDER=True, ESTIMATE_CAMERA=False, ORDERED_INPUT=True,
+                 MULTIBAND=2, RANSAC_ITERATIONS=400, MAX_CAND_PER_OCTAVE=1024,
+                 MAX_KP_PER_OCTAVE=512, MAX_DESC_PER_OCTAVE=512,
+                 MAX_KP_PER_IMAGE=1024, MAX_MATCHES_PER_PAIR=512,
+                 SIFT_WORKING_SIZE=400)
+    res = []
+    for dev in (card, "cpu"):
+        info = {}
+        canvas, valid = stitch_images(u8, cfg, output="u8", device=dev,
+                                      info_out=info)
+        res.append((canvas.astype(np.float64), valid, info))
+    (gc, gv, gi), (cc, cv, ci) = res
+    assert gi["hfactor"] == ci["hfactor"]
+    assert gc.shape == cc.shape
+    assert (gv == cv).mean() >= 0.999 and cv.mean() > 0.8
+    m = gv & cv
+    a, b = gc[m] - gc[m].mean(), cc[m] - cc[m].mean()
+    assert (a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()) >= 0.999
+
+
+def test_brief_card_equals_cpu(card):
+    """BRIEF descriptors and matches on the card equal the CPU's bit for
+    bit: comparisons, bit packing and integer popcounts only."""
+    from openpano_torch import Config
+    from openpano_torch.sift import brief
+    from openpano_torch.synth import procedural_scene
+
+    rng = np.random.default_rng(0)
+    grey = procedural_scene(300, 400, seed=3).mean(-1).astype(np.float32)
+    pat = brief.gen_brief_pattern(0)
+    K = 2048
+    pts = np.stack([rng.uniform(-2, 362, K), rng.uniform(-2, 242, K)],
+                   -1).astype(np.float32)
+    valid = rng.uniform(size=K) < 0.9
+    cfg = Config(MAX_MATCHES_PER_PAIR=1024)
+    out = []
+    for dev in (card, "cpu"):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        da, va = brief.compute_brief(t(grey[:280, :380]), t(pts), t(valid),
+                                     pat.offsets, pat.s)
+        db, vb = brief.compute_brief(t(grey[10:290, 12:392]),
+                                     t(pts - np.float32([12, 10])), t(valid),
+                                     pat.offsets, pat.s)
+        m = brief.match_brief(da, va, db, vb, cfg)
+        out.append([v.cpu() for v in (da, va, db, vb, *m)])
+    for g, c in zip(*out):
+        assert torch.equal(g, c)
+    assert int(out[1][-1][0]) > 100

@@ -96,9 +96,9 @@ def test_canvas_ncc(both):
 
 
 def test_stitch_images_entry_point():
-    """The public entry point on the CPU (u8 out) in TRANS mode, the default
-    ``Config()`` and the naive flat mode on rotating views, and the
-    refusals of what is not ported yet."""
+    """The public entry point on the CPU (u8 out) in TRANS mode, and in the
+    default ``Config()``, the naive flat mode, the default with
+    MULTIBAND=2 and CYLINDER mode on rotating views."""
     cfg = config_from_fields(dataclasses.asdict(JCFG))
     canvas, valid = stitch_images(_views("u8"), cfg, output="u8",
                                   device="cpu")
@@ -115,7 +115,16 @@ def test_stitch_images_entry_point():
         assert canvas.shape[1] > 2.0 * 320 and valid.mean() > 0.3
         assert info["connected_pairs"] >= 4
         assert ("cams" in info) == mode.ESTIMATE_CAMERA
-    for kw in (dict(MULTIBAND=2),
-               dict(ESTIMATE_CAMERA=False, CYLINDER=True, ORDERED_INPUT=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stitch_images(u8, default.replace(**kw), device="cpu")
+    info = {}
+    canvas, valid = stitch_images(u8, default.replace(MULTIBAND=2),
+                                  output="u8", device="cpu", info_out=info)
+    assert canvas.shape[1] > 2.0 * 320 and valid.mean() > 0.3
+    assert info["plan"].out_w == canvas.shape[1]
+    cyl = default.replace(ESTIMATE_CAMERA=False, CYLINDER=True,
+                          ORDERED_INPUT=True)
+    info = {}
+    canvas, valid = stitch_images(u8, cyl, output="u8", device="cpu",
+                                  info_out=info)
+    assert canvas.dtype == np.uint8 and canvas.shape[:2] == valid.shape
+    assert canvas.shape[1] > 2.0 * 320 and valid.mean() > 0.8
+    assert 0.5 <= info["hfactor"] <= 1.5 and 1 <= info["trials"] <= 4
