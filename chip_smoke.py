@@ -49,7 +49,24 @@ Phases, each fatal on failure:
   8. multiband path: the main path again with MULTIBAND=2 (bench.py's
      multiband case), counts read around this run alone: the main path's
      gates, the linear canvas's size, and NCC above 0.97 against it;
-  9. CYLINDER path: the headline views in sweep order in CYLINDER mode,
+  9. CLI: the headline views written as PNG files and a config file with
+     every reference knob at its default and the headline caps;
+     ``cli.main`` with ``--seed 1`` and ``--dump-matchinfo``, counts read
+     around this run alone: the PNG it writes must equal the crop of the
+     main path's canvas bit for bit; again with ``--load-matchinfo``: the
+     same canvas size, equal valid masks, a u8 difference of at most 1;
+  10. host-stream path: the main path with ``OPENPANO_HBM_BUDGET_GB=1.0``,
+     so that the 1.54 GB paired stack stays in host memory (features batch
+     by batch, the blend in 7 column bands), counts read around this run
+     alone: the main path's gates, and against the main path's canvas the
+     same size, valid masks agreeing on >= 99.9%, a u8 difference of at
+     most 1;
+  11. blend memory: the host-stream linear and multiband blends (7 bands)
+     against the in-memory blends of the uploaded stack on the main and
+     multiband paths' plans: each host-stream peak device memory below its
+     in-memory counterpart's, canvases within 1e-4 where both are valid,
+     valid masks agreeing on >= 99.9%;
+  12. CYLINDER path: the headline views in sweep order in CYLINDER mode,
      FOCAL_LENGTH set so that the cylinder's radius is the views' true
      focal, counts read around this run alone: the canvas within 5% of the
      size the true yaws give, a valid fraction above 0.3, a non-empty crop.
@@ -59,10 +76,13 @@ device record.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -71,14 +91,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from openpano_torch import Config, stitch_images  # noqa: E402
-from openpano_torch import _build  # noqa: E402
+from openpano_torch import _build, cli  # noqa: E402
 from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
 from openpano_torch.camera.estimator import estimate_cameras  # noqa: E402
 from openpano_torch.ops import windows  # noqa: E402
+from openpano_torch.io.image import read_img_u8, write_rgb  # noqa: E402
 from openpano_torch.ops.imgproc import crop_with_mask  # noqa: E402
 from openpano_torch.sift import brief  # noqa: E402
-from openpano_torch.stitch.multiband import _roi_sizes  # noqa: E402
-from openpano_torch.stitch.render import plan_render  # noqa: E402
+from openpano_torch.stitch import render, stitcher  # noqa: E402
+from openpano_torch.stitch.multiband import _roi_sizes, blend_multiband, \
+    blend_multiband_host_stream  # noqa: E402
+from openpano_torch.stitch.render import blend_linear, \
+    blend_linear_host_stream, plan_render  # noqa: E402
 from openpano_torch.stitch.stitcherbase import FEATURE_BATCH, \
     compute_features, grey_u8  # noqa: E402
 from openpano_torch.stitch.warp import make_projector  # noqa: E402
@@ -104,6 +128,8 @@ SMALL = dict(RANSAC_ITERATIONS=400, MAX_CAND_PER_OCTAVE=1024,
 TRANS = dict(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True)
 CYLINDER = dict(CYLINDER=True, ESTIMATE_CAMERA=False, ORDERED_INPUT=True)
 MB_NCC_LIMIT = 0.97             # bench.py:173, multiband against linear
+HOST_BUDGET_GB = "1.0"          # the host-stream path's OPENPANO_HBM_BUDGET_GB
+HOST_GROUPS = 7                 # its bands: ceil(1.54 GB / (1.0 GB / 4))
 
 # name, wrapper (holds the launch count), kernel, plain version, TPU kernel
 KERNELS = (
@@ -588,9 +614,10 @@ def drive(label: str, u8: np.ndarray, cfg: Config, key=None):
     wall = time.perf_counter() - t0
     launches = read_counts()
     stages = {k: round(s, 4) for k, (_, s) in timer.totals().items()}
-    info["stages_s"] = stages
+    info.update(stages_s=stages, wall_s=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"{label}: {wall:.3f} s wall, {len(u8) / wall:.2f} img/s, peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"device memory {info['peak_gib']:.2f} GiB")
     print(f"{label} stages_s: {json.dumps(stages)}")
     print(f"{label} kernels launched: {json.dumps(launches)}")
     check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
@@ -694,13 +721,13 @@ def camera_error(homos: np.ndarray, truth: dict, perm: np.ndarray) -> float:
 
 
 def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
-              multiband: int = 0):
+              multiband: int = 0, label: str | None = None):
     """stitch_images with the default Config (and ``multiband`` levels)
     over the headline set, with the main path's gates.  Returns (canvas,
     valid, info, launches)."""
     cfg = Config(MULTIBAND=multiband, **HEADLINE)
     key = prng.key((0, 1), "cuda")                   # PRNGKey(1)
-    label = "multiband path" if multiband else "main path"
+    label = label or ("multiband path" if multiband else "main path")
     canvas, valid, info, launches = drive(label, u8, cfg, key)
     print(f"bundle adjustment: {info['lm_iters']} LM iterations in "
           f"{info['lm_time_s']:.3f} s, ba_rms_px {info['ba_rms_px']:.4f} over "
@@ -732,9 +759,10 @@ def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
 
 
 def multiband_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
-                   linear: tuple) -> dict:
+                   linear: tuple) -> tuple[dict, object]:
     """The main path with MULTIBAND=2 (bench.py:147-173): its gates, the
-    linear canvas's size, and NCC above 0.97 against the linear canvas."""
+    linear canvas's size, and NCC above 0.97 against the linear canvas.
+    Returns (launches, render plan)."""
     canvas, valid, info, launches = main_path(u8, truth, perm, multiband=2)
     lin, lin_valid, lin_info = linear
     plan = info["plan"]
@@ -750,7 +778,199 @@ def multiband_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
           f"{(valid & lin_valid).mean():.4f} of the canvas, valid agree "
           f"{(valid == lin_valid).mean():.6f}")
     check(ncc > MB_NCC_LIMIT, f"multiband NCC against linear {ncc:.4f}")
+    return launches, plan
+
+
+def u8_agreement(label: str, got: tuple, want: tuple) -> int:
+    """Gate two (u8 canvas, valid) results: the same size, valid masks
+    agreeing on >= 99.9% of pixels, a u8 difference of at most 1 where both
+    are valid.  Returns the largest difference."""
+    (cg, vg), (cw, vw) = got, want
+    check(cg.shape == cw.shape, f"{label}: canvas {cg.shape} vs {cw.shape}")
+    agree = float((vg == vw).mean())
+    both = vg & vw
+    diff = int(np.abs(cg[both].astype(np.int16)
+                      - cw[both].astype(np.int16)).max())
+    print(f"{label}: canvas {cg.shape[1]}x{cg.shape[0]}, valid agree "
+          f"{agree:.6f}, max u8 difference {diff}, "
+          f"{int((cg[both] != cw[both]).any(-1).sum())} pixels differ")
+    check(agree >= 0.999, f"{label}: valid masks disagree")
+    check(diff <= 1, f"{label}: u8 difference {diff} > 1")
+    return diff
+
+
+def run_cli(argv: list[str]) -> tuple[int, str, tuple, dict, float]:
+    """cli.main(argv) with its stdout captured, the launch counts set to 0
+    just before and read just after, and the stitcher's uncropped
+    (canvas, valid) recorded.  Returns (rc, stdout, result, launches,
+    wall)."""
+    got = {}
+    real = stitcher.stitch
+
+    def recorder(*args, **kw):
+        got["result"] = real(*args, **kw)
+        return got["result"]
+
+    buf = io.StringIO()
+    stitcher.stitch = recorder
+    reset_counts()
+    timer.reset()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        stitcher.stitch = real
+    return rc, buf.getvalue(), got["result"], read_counts(), wall
+
+
+def cli_phase(u8: np.ndarray, linear: tuple) -> dict:
+    """The headline through ``cli.main`` on the card: PNG views, a config
+    file, --seed 1, --dump-matchinfo, then --load-matchinfo."""
+    canvas, valid, _ = linear
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = []
+        for i, view in enumerate(u8):
+            files.append(os.path.join(tmp, f"view{i:02d}.png"))
+            write_rgb(files[-1], view)
+        values = {k: getattr(Config, k) for k in Config.REFERENCE_KNOBS}
+        values.update(HEADLINE)
+        cfg_path = os.path.join(tmp, "config.cfg")
+        with open(cfg_path, "w") as f:
+            for k, v in values.items():
+                f.write(f"{k} {int(v) if isinstance(v, bool) else v}\n")
+        check(cli.load_config(cfg_path) == Config(**HEADLINE),
+              "the config file does not read back as the headline Config")
+        print(f"CLI inputs: {len(files)} PNG views and the config file in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out1, out2 = os.path.join(tmp, "a.png"), os.path.join(tmp, "b.png")
+        mi = os.path.join(tmp, "matchinfo.txt")
+        runs = []
+        for extra, out in ((["--dump-matchinfo", mi], out1),
+                           (["--load-matchinfo", mi], out2)):
+            rc, text, result, launches, wall = run_cli(
+                ["-c", cfg_path, "--seed", "1", "-o", out, *extra, *files])
+            check(rc == 0, f"CLI exit code {rc}")
+            label = "CLI" if extra[0] == "--dump-matchinfo" else \
+                "CLI --load-matchinfo"
+            print(f"{label}: {wall:.3f} s wall, kernels launched "
+                  f"{json.dumps(launches)}")
+            for line in text.splitlines():
+                if line.startswith(("Stitched in", "metrics:", "Final Image",
+                                    "Cropped to", "peak rss", "Loaded",
+                                    "Dumped")):
+                    print(f"  {line}")
+            runs.append((read_img_u8(out), result, launches))
+        print(f"matchinfo text: {os.path.getsize(mi)} bytes")
+        (png1, res1, launches), (png2, res2, _) = runs
+        crop = crop_with_mask(canvas, valid)
+        same = png1.shape == crop.shape and np.array_equal(png1, crop)
+        print(f"CLI PNG {png1.shape[1]}x{png1.shape[0]} equals the crop of "
+              f"the main path's canvas bit for bit: {same}")
+        check(same, "the CLI's PNG differs from the main path's crop")
+        check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
+              "CLI: a kernel of the path never launched")
+        check(np.array_equal(res2[1], res1[1]),
+              "--load-matchinfo: valid masks differ")
+        u8_agreement("CLI --load-matchinfo against CLI", res2, res1)
+        print(f"--load-matchinfo canvas equals the first run's bit for bit: "
+              f"{np.array_equal(res2[0], res1[0])}; PNGs equal: "
+              f"{png1.shape == png2.shape and np.array_equal(png1, png2)}")
     return launches
+
+
+def host_stream_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
+                     linear: tuple) -> tuple[dict, dict]:
+    """The main path with OPENPANO_HBM_BUDGET_GB=1.0: the stack stays in
+    host memory.  Its band uploads are recorded; gated against the main
+    path's canvas.  Returns (launches, info)."""
+    canvas, valid, lin_info = linear
+    bands = []
+    real = render.band_slice
+
+    def recorder(imgs, ids, dev):
+        bands.append(len(ids))
+        return real(imgs, ids, dev)
+
+    os.environ["OPENPANO_HBM_BUDGET_GB"] = HOST_BUDGET_GB
+    render.band_slice = recorder
+    try:
+        groups = stitcher.host_stream_groups(u8.shape)
+        print(f"host-stream trigger: paired stack "
+              f"{stitcher.paired_gb(u8.shape):.4f} GB against a "
+              f"{HOST_BUDGET_GB} GB budget, fires "
+              f"{stitcher.stays_on_host(u8.shape)}, {groups} bands")
+        check(stitcher.stays_on_host(u8.shape) and groups == HOST_GROUPS,
+              "the host-stream trigger did not fire as predicted")
+        hs, hv, info, launches = main_path(u8, truth, perm,
+                                           label="host-stream path")
+    finally:
+        render.band_slice = real
+        del os.environ["OPENPANO_HBM_BUDGET_GB"]
+    print(f"host-stream path: {len(bands)} band uploads (of {HOST_GROUPS} "
+          f"bands, empty ones upload nothing) of {bands} views; "
+          f"peak device memory {info['peak_gib']:.2f} GiB against the main "
+          f"path's {lin_info['peak_gib']:.2f} GiB; blend stage "
+          f"{info['stages_s']['blend']} s against "
+          f"{lin_info['stages_s']['blend']} s")
+    check(0 < len(bands) <= HOST_GROUPS and max(bands) < len(u8)
+          and sum(bands) >= len(u8),
+          "the host-stream blend did not stream bands of the stack")
+    u8_agreement("host-stream against main path", (hs, hv), (canvas, valid))
+    return launches, info
+
+
+def blend_memory_phase(u8: np.ndarray, lin_plan, mb_plan):
+    """The host-stream blends alone against the in-memory blends of the
+    uploaded stack, peak device memory reset before each call."""
+    def measure(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2**30, base / 2**30)
+
+    for label, plan, mb in (("linear", lin_plan, 0),
+                            ("multiband", mb_plan, 2)):
+        if mb:
+            host = lambda: blend_multiband_host_stream(u8, plan, mb,
+                                                       HOST_GROUPS)
+        else:
+            host = lambda: blend_linear_host_stream(u8, plan, False,
+                                                    HOST_GROUPS)
+        got, t_host, peak_host, base_host = measure(host)
+        stack = torch.from_numpy(u8).cuda()        # the uploaded u8 stack
+
+        def in_memory():
+            src = stack.to(torch.float32) / 255.0  # the stitcher's blend stage
+            out = (blend_multiband(src, plan, mb) if mb
+                   else blend_linear(src, plan, False))
+            return out.cpu().numpy()
+
+        want, t_mem, peak_mem, base_mem = measure(in_memory)
+        del stack
+        vg, vw = got[..., 0] >= 0, want[..., 0] >= 0
+        both = vg & vw
+        diff = float(np.abs(got[both] - want[both]).max())
+        agree = float((vg == vw).mean())
+        print(f"blend alone [{label}, {len(plan.items)} items, "
+              f"{plan.out_w}x{plan.out_h}]: host stream {t_host:.3f} s, peak "
+              f"{peak_host:.3f} GiB (from {base_host:.3f}); in memory "
+              f"{t_mem:.3f} s, peak {peak_mem:.3f} GiB (from {base_mem:.3f}, "
+              f"the u8 stack on the card); max abs diff {diff:.3e}, valid "
+              f"agree {agree:.6f}")
+        check(got.shape == want.shape, f"blend alone [{label}]: shapes differ")
+        check(peak_host < peak_mem,
+              f"blend alone [{label}]: the host stream's peak is not lower")
+        check(diff <= 1e-4, f"blend alone [{label}]: canvases differ")
+        check(agree >= 0.999, f"blend alone [{label}]: valid masks disagree")
 
 
 def expected_cylinder_canvas(truth: dict, inv_perm: np.ndarray,
@@ -844,14 +1064,19 @@ def main(kernels_only: bool = False) -> int:
     trans_launches = trans_path(strip, xy)
     linear = main_path(u8, truth, perm)
     launches = linear[-1]
-    mb_launches = multiband_path(u8, truth, perm, linear[:3])
+    mb_launches, mb_plan = multiband_path(u8, truth, perm, linear[:3])
+    cli_launches = cli_phase(u8, linear[:3])
+    host_launches, _ = host_stream_path(u8, truth, perm, linear[:3])
+    blend_memory_phase(u8, linear[2]["plan"], mb_plan)
     del linear
     cyl_launches = cylinder_path(u8, truth, perm)
     for entry in report:
         k = entry["name"]
         entry.update(launches=launches[k], trans_launches=trans_launches[k],
                      multiband_launches=mb_launches[k],
-                     cylinder_launches=cyl_launches[k])
+                     cylinder_launches=cyl_launches[k],
+                     cli_launches=cli_launches[k],
+                     host_stream_launches=host_launches[k])
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": report}))

@@ -9,7 +9,10 @@ estimation with the incremental bundle adjustment, the spherical blend),
 TRANS, the naive flat mode and CYLINDER (cylindrical pre-warp, h-factor
 search, affine chain, perspective correction) — with the linear or the
 multiband blender, on the card; the CPU runs the kernels' plain versions
-when asked for (``device="cpu"``), which is what the parity tests do.
+when asked for (``device="cpu"``), which is what the parity tests do.  A
+uint8 stack too large for the device budget stays in host memory and blends
+band by band (``stitch/stitcher.py``).  ``python -m openpano_torch.cli`` is
+the command line, with the reference's debug modes.
 """
 
 from .config import DEFAULT, Config

@@ -22,7 +22,10 @@ The LM loop keeps the JAX package's semantics, quirks included:
 
 Everything is float64.  The loop is a Python loop (``lax.while_loop``
 there); it reads the error back each step to decide, which on the card is
-one small synchronisation per iteration.
+one small synchronisation per iteration.  With ``OPENPANO_CHECK_NUMERICS=1``
+each iteration also checks its residuals, normal equations, step, trial
+parameters and cost (the JAX package runs its loop under ``checkify``'s
+float checks) and raises ``NumericsError`` at the first non-finite one.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.debug import assert_finite, numeric_checks_enabled
 from .rotation import drodrigues, rodrigues
 
 LM_MAX_ITER = 100       # incremental_bundle_adjuster.cc:24
@@ -237,14 +241,21 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
                       identity_idx: int, n_cam: int, lm_lambda: float,
                       adaptive: bool = False, max_iter: int = LM_MAX_ITER,
                       patience: int = NR_NON_DECREASE, rel_tol: float = 0.0,
-                      banded: bool = False):
+                      banded: bool = False, bucket: int | None = None):
     """The LM loop (optimize(), .cc:117-168) over a pair-major problem, on
     the device of ``params`` and ``prob``.  params: [n, 6] float64 rows
     (focal, ppx, ppy, rx, ry, rz).  ``banded`` solves the normal equations
     by cyclic block Thomas elimination (chain/ring match graphs) instead of
-    the dense Cholesky.  Returns (optimized params [n, 6], iterations)."""
+    the dense Cholesky.  ``bucket`` (the slot count) names the run in a
+    numeric-check failure.  Returns (optimized params [n, 6], iterations)."""
     if not lm_lambda > 0:
         raise ValueError("LM damping must be positive (SPD precondition)")
+    checks = numeric_checks_enabled()
+
+    def check(**named):
+        if checks:
+            assert_finite(f"ba_lm[{bucket}] iteration {itr}", **named)
+
     dt, dev = params.dtype, params.device
     upd = torch.ones(n_cam, 6, dtype=dt, device=dev)
     upd[identity_idx, 3:] = 0.0
@@ -253,9 +264,10 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
                             1.0, 0.1).to(dt)
 
     best_flat = params.reshape(-1)
+    nr_nd, itr, lam = 0, 0, float(lm_lambda)
     resid, wm = _pairs_residuals(params, prob)
     best_err = _rms(resid, wm)
-    nr_nd, itr, lam = 0, 0, float(lm_lambda)
+    check(residuals=resid, cost=best_err)
     while itr < max_iter and nr_nd <= patience:
         cur = best_flat.reshape(n_cam, 6)
         if banded:
@@ -263,16 +275,22 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
 
             Bp, bp, F, Tc = _pairs_ne_blocks(cur, resid, prob, upd)
             D, U, C, rhs = assemble_banded(Bp, bp, F, Tc, n_cam)
+            check(normal_equations_D=D, normal_equations_U=U,
+                  normal_equations_C=C, normal_equations_rhs=rhs)
             dvec = (damp_unit * lam).reshape(n_cam, 6)
             D = D + torch.eye(6, dtype=dt, device=dev)[None] * dvec[:, :, None]
             delta = solve_block_cyclic(D, U, C, rhs).reshape(-1)
         else:
             JtJ, Jtb = _pairs_normal_equations(cur, resid, prob, n_cam, upd)
+            check(normal_equations_JtJ=JtJ, normal_equations_Jtb=Jtb)
             delta = solve_sym_scaled_chol(
                 JtJ + torch.diag(damp_unit * lam), Jtb)
+        check(step=delta)
         new_flat = best_flat - delta * upd_flat
+        check(trial_params=new_flat)
         resid, wm = _pairs_residuals(new_flat.reshape(n_cam, 6), prob)
         new_err = _rms(resid, wm)
+        check(residuals=resid, cost=new_err)
         improved = new_err < best_err - max(1e-3, rel_tol * best_err)
         if improved:
             best_flat, best_err, nr_nd = new_flat, new_err, 0

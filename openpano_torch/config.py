@@ -8,9 +8,9 @@ means the same thing here (see :mod:`openpano_torch.compat`).  The same
 whitespace key-value file format is accepted by :func:`Config.from_file`
 (reference: lib/config.cc:13-35).
 
-Knobs that steer code this package has not ported yet (multiband, cylinder
-mode) are carried unchanged; the entry point refuses the configurations that
-need them.
+``STREAM_BLEND`` steers the JAX package's streamed transfer, which this
+package has not ported; it is carried unchanged and the canvas is the same
+either way.
 """
 
 from __future__ import annotations

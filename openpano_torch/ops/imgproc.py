@@ -163,3 +163,36 @@ def crop_with_mask(img: np.ndarray, valid: np.ndarray) -> np.ndarray:
     if h == 0 or w == 0:
         return img[:0, :0]
     return img[y0 : y0 + h, x0 : x0 + w]
+
+
+def crop_to_largest_rect(img: np.ndarray) -> np.ndarray:
+    """Crop a host float image to the largest rectangle containing no
+    INVALID pixel (reference: crop, imgproc.cc:200-235)."""
+    img = np.asarray(img)
+    return crop_with_mask(img, img.max(axis=-1) >= 0)
+
+
+def hconcat(mats: list[np.ndarray]) -> np.ndarray:
+    """Horizontal concat with zero padding to the tallest (imgproc.cc:86-110);
+    a host-side debug helper."""
+    hmax = max(m.shape[0] for m in mats)
+    out = np.zeros((hmax, sum(m.shape[1] for m in mats), mats[0].shape[2]),
+                   dtype=np.float32)
+    x = 0
+    for m in mats:
+        out[: m.shape[0], x : x + m.shape[1]] = m
+        x += m.shape[1]
+    return out
+
+
+def vconcat(mats: list[np.ndarray]) -> np.ndarray:
+    """Vertical concat with zero padding to the widest (imgproc.cc:112-133);
+    a host-side debug helper."""
+    wmax = max(m.shape[1] for m in mats)
+    out = np.zeros((sum(m.shape[0] for m in mats), wmax, mats[0].shape[2]),
+                   dtype=np.float32)
+    y = 0
+    for m in mats:
+        out[y : y + m.shape[0], : m.shape[1]] = m
+        y += m.shape[0]
+    return out

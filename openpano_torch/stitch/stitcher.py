@@ -6,9 +6,18 @@ counterpart of ``openpano_tpu/stitch/stitcher.py`` on one device.  Pipeline:
 features -> all-pairs (or ordered ring) matching + RANSAC -> camera
 estimation with the incremental bundle adjustment (or homography chaining)
 -> spherical (or flat) render plan -> linear (or multiband) blend.
+
+A uint8 host stack whose x-paired f32 copy would not fit the device budget
+(``OPENPANO_HBM_BUDGET_GB``, 8 by default), or any uint8 host stack when
+``OPENPANO_HOST_BLEND=1``, never goes to the device whole: the features
+upload it batch by batch and the blend streams column bands of it
+(``render.blend_linear_host_stream``,
+``multiband.blend_multiband_host_stream``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -21,9 +30,10 @@ from ..match.matcher import MatchResult, match_all_pairs, match_ring_pairs, \
     pair_indices
 from ..sift.descriptor import Features
 from ..utils import prng
+from ..utils.debug import assert_finite
 from ..utils.timer import total_timer
-from .render import blend, f32_to_u8, plan_render
-from .stitcherbase import compute_features
+from .render import blend, blend_linear_host_stream, f32_to_u8, plan_render
+from .stitcherbase import HostImages, compute_features
 
 
 class PairwiseGraph:
@@ -167,8 +177,33 @@ def prologue(cfg: Config, output: str, key, device):
     return dev, prng.key((0, 0), dev) if key is None else key.to(dev)
 
 
+def paired_gb(shape) -> float:
+    """GB of the x-paired f32 blend stack of an [N, H, W, 3] set (36 B a
+    pixel: 4-byte floats, 3 channels, paired, plus the f32 copy)."""
+    return shape[0] * shape[1] * shape[2] * 36 / 1e9
+
+
+def _budget_gb() -> float:
+    return float(os.environ.get("OPENPANO_HBM_BUDGET_GB", "8"))
+
+
+def stays_on_host(shape) -> bool:
+    """Whether a uint8 host stack of this shape takes the host-stream path:
+    its paired stack exceeds ``OPENPANO_HBM_BUDGET_GB``, or
+    ``OPENPANO_HOST_BLEND=1`` forces it."""
+    return (paired_gb(shape) > _budget_gb()
+            or os.environ.get("OPENPANO_HOST_BLEND", "") == "1")
+
+
+def host_stream_groups(shape) -> int:
+    """Column bands of the host-stream blend: one per quarter budget of the
+    paired stack, at least 2."""
+    return max(2, int(np.ceil(paired_gb(shape) / max(_budget_gb() * 0.25,
+                                                     0.1))))
+
+
 def stitch(imgs, cfg: Config, key=None, output: str = "f32", device=None,
-           info_out: dict | None = None):
+           info_out: dict | None = None, graph: PairwiseGraph | None = None):
     """Stitcher::build (stitcher.cc:32-63).
 
     imgs: [n, H, W, 3] uint8 or float32 in [0, 1] (numpy or torch).
@@ -178,17 +213,32 @@ def stitch(imgs, cfg: Config, key=None, output: str = "f32", device=None,
     ``(canvas_u8, valid)``.  ``info_out`` collects per-image keypoint
     counts, the match graph, ``connected_pairs``, ``total_inliers``, the
     cameras (``cams``) and the bundle adjustment's statistics in
-    ESTIMATE_CAMERA mode, the homographies and the render plan."""
+    ESTIMATE_CAMERA mode, the homographies and the render plan.
+
+    graph: a preloaded match graph (``io.artifacts.load_matchinfo_text``):
+    the feature and match stages are skipped (the reference's
+    load_matchinfo fixture, debug.cc:127-140), and ``info_out`` gets no
+    keypoint counts.  A uint8 host stack (numpy or a CPU tensor) past the
+    device budget stays in host memory (module docstring)."""
     dev, key = prologue(cfg, output, key, device)
-    imgs = torch.as_tensor(np.asarray(imgs) if not torch.is_tensor(imgs)
-                           else imgs)
+    if not torch.is_tensor(imgs) or imgs.device.type == "cpu":
+        imgs = np.asarray(imgs)                   # host memory, no copy
     n, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
-    with total_timer("upload"):
-        imgs = imgs.to(dev)
-    with total_timer("calc_feature"):
-        feats = compute_features(imgs, cfg)
     whs_np = np.repeat([[float(W), float(H)]], n, 0)
-    return _stitch_core(imgs, feats, whs_np, cfg, key, output, info_out)
+    on_host = (graph is None and isinstance(imgs, np.ndarray)
+               and imgs.dtype == np.uint8 and stays_on_host(imgs.shape))
+    if not on_host:
+        with total_timer("upload"):
+            imgs = torch.as_tensor(imgs).to(dev)
+    feats = None
+    if graph is None:
+        with total_timer("calc_feature"):
+            feats = compute_features(imgs, cfg, dev)
+        assert_finite("calc_feature", pos=feats.pos, desc=feats.desc)
+    if on_host:
+        imgs = HostImages(imgs, dev)
+    return _stitch_core(imgs, feats, whs_np, cfg, key, output, info_out,
+                        graph)
 
 
 def stitch_hetero(imgs_list, cfg: Config, key=None, output: str = "f32",
@@ -236,23 +286,28 @@ def stitch_hetero(imgs_list, cfg: Config, key=None, output: str = "f32",
     return _stitch_core(src, feats, whs_np, cfg, key, output, info_out)
 
 
-def _stitch_core(imgs: torch.Tensor, feats: Features, whs_np: np.ndarray,
+def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
                  cfg: Config, key: torch.Tensor, output: str,
-                 info_out: dict | None):
+                 info_out: dict | None, graph: PairwiseGraph | None = None):
     """Shared tail of Stitcher::build after the features: match graph ->
     cameras (or homography chain) -> render plan -> blend
     (stitcher.cc:38-63).  imgs: [n, H, W, 3] blend stack on the card (or
     the CPU), uint8 or float32 in [0, 1] with INVALID beyond each image's
-    ``whs`` extent; it becomes float32 in the blend stage."""
+    ``whs`` extent, which becomes float32 in the blend stage; or
+    ``HostImages``, whose blend streams from host memory.  ``graph``, when
+    given, replaces the match stage (and ``feats`` is None)."""
     n = whs_np.shape[0]
     mid = n >> 1                                  # assign_center, :138-141
     whs = torch.as_tensor(whs_np, dtype=torch.float32, device=imgs.device)
-    if info_out is not None:
+    if info_out is not None and feats is not None:
         info_out["kpt_counts"] = feats.valid.sum(1).cpu().numpy()
-    with total_timer("pairwise_match"):
-        graph = build_pairwise_graph(feats, whs, cfg, key,
-                                     ordered=cfg.ORDERED_INPUT,
-                                     affine=cfg.TRANS)
+    if graph is None:
+        with total_timer("pairwise_match"):
+            graph = build_pairwise_graph(feats, whs, cfg, key,
+                                         ordered=cfg.ORDERED_INPUT,
+                                         affine=cfg.TRANS)
+        assert_finite("pairwise_match", conf=graph.conf, homo=graph.homo,
+                      to_pos=graph.to_pos, from_pos=graph.from_pos)
     if info_out is not None:
         conn = graph.conf > 0
         info_out.update(
@@ -264,6 +319,7 @@ def _stitch_core(imgs: torch.Tensor, feats: Features, whs_np: np.ndarray,
             cams = estimate_cameras(
                 graph.conf, graph.homo, graph.to_pos, graph.from_pos,
                 graph.valid, whs_np, cfg, stats=info_out, device=imgs.device)
+        assert_finite("estimate_camera", focal=cams.focal, R=cams.R)
         homos = np.zeros((n, 3, 3))
         for i in range(n):                        # stitcher.cc:143-154
             K = intrinsic(cams.focal[i], cams.ppx[i], cams.ppy[i])
@@ -277,15 +333,40 @@ def _stitch_core(imgs: torch.Tensor, feats: Features, whs_np: np.ndarray,
 
     with total_timer("blend"):
         plan = plan_render(homos, whs_np, mid, proj, cfg.MAX_OUTPUT_SIZE)
-        src = imgs.to(torch.float32)
-        if imgs.dtype == torch.uint8:
-            src = src / 255.0
-        canvas = blend(src, plan, ordered=cfg.ORDERED_INPUT,
-                       multiband=cfg.MULTIBAND)
-        result = to_output(canvas, output)
+        if isinstance(imgs, HostImages):
+            result = _blend_host_stream(imgs, plan, cfg, output)
+        else:
+            src = imgs.to(torch.float32)
+            if imgs.dtype == torch.uint8:
+                src = src / 255.0
+            canvas = blend(src, plan, ordered=cfg.ORDERED_INPUT,
+                           multiband=cfg.MULTIBAND)
+            result = to_output(canvas, output)
     if info_out is not None:
         info_out.update(homos=homos, plan=plan)
     return result
+
+
+def _blend_host_stream(imgs: HostImages, plan, cfg: Config, output: str):
+    """The blend stage of a stack kept in host memory, in
+    ``host_stream_groups`` column bands: multiband through its band stream,
+    linear through the u8 strips when the output is u8, else through the
+    f32 strips."""
+    groups = host_stream_groups(imgs.host.shape)
+    if cfg.MULTIBAND > 0:
+        from .multiband import blend_multiband_host_stream
+
+        canvas = blend_multiband_host_stream(imgs.host, plan, cfg.MULTIBAND,
+                                             groups, device=imgs.device)
+    elif output == "u8":
+        rgba = blend_linear_host_stream(imgs.host, plan, cfg.ORDERED_INPUT,
+                                        groups, u8_out=True,
+                                        device=imgs.device)
+        return rgba[..., :3], rgba[..., 3] > 0
+    else:
+        canvas = blend_linear_host_stream(imgs.host, plan, cfg.ORDERED_INPUT,
+                                          groups, device=imgs.device)
+    return to_output(torch.from_numpy(canvas), output)
 
 
 def to_output(canvas: torch.Tensor, output: str):

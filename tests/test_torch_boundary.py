@@ -82,30 +82,57 @@ def test_kernel_wrappers_never_take_plain_path_on_card():
     "camera/rotation.py", "camera/camera.py", "camera/bundle_adjuster.py",
     "camera/banded.py", "camera/estimator.py", "io/image.py",
     "stitch/stitcher.py", "ops/windows.py", "stitch/warp.py",
-    "stitch/cylstitcher.py", "stitch/multiband.py", "sift/brief.py"])
+    "stitch/cylstitcher.py", "stitch/multiband.py", "sift/brief.py",
+    "cli.py", "io/artifacts.py", "utils/debug.py", "utils/draw.py"])
 def test_slice_modules_are_checked(module):
-    """The camera stack, the image IO, the stitchers, the multiband blender
-    and BRIEF are among the files the import check above parses."""
+    """The camera stack, the image IO, the stitchers, the multiband blender,
+    BRIEF, the CLI, the stage artifacts and the debug tools are among the
+    files the import check above parses."""
     assert ROOT / "openpano_torch" / module in _port_files()
 
 
-def test_entry_points_raise_without_card(monkeypatch):
-    """stitch_hetero and the bundle adjustment on the card
-    (BA_ON_HOST=False) refuse to fall back to the CPU."""
+def _no_card_entries():
+    """Entry points that must raise without a card: name -> call."""
     import numpy as np
 
-    from openpano_torch import Config
+    from openpano_torch import Config, cli
     from openpano_torch.camera.estimator import estimate_cameras
-    from openpano_torch.stitch.stitcher import stitch_hetero
+    from openpano_torch.stitch.multiband import blend_multiband_host_stream
+    from openpano_torch.stitch.render import blend_linear_host_stream, \
+        plan_render
+    from openpano_torch.stitch.stitcher import stitch, stitch_hetero
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        stitch_hetero([np.zeros((32, 32, 3), np.uint8)] * 2, Config())
     n, M = 3, 4
     conf = np.zeros((n, n))
     conf[0, 1] = conf[1, 0] = conf[1, 2] = conf[2, 1] = 0.5
+    u8 = np.zeros((2, 32, 32, 3), np.uint8)
+    plan = plan_render(np.stack([np.eye(3)] * 2), np.full((2, 2), 32.0), 0,
+                       "flat", 8000)
+    return {
+        "stitch_hetero": lambda: stitch_hetero([u8[0]] * 2, Config()),
+        "estimate_cameras_on_card": lambda: estimate_cameras(
+            conf, np.tile(np.eye(3), (n, n, 1, 1)), np.zeros((n, n, M, 2)),
+            np.zeros((n, n, M, 2)), np.ones((n, n, M), bool),
+            np.full((n, 2), 64.0), Config(BA_ON_HOST=False)),
+        "cli_main": lambda: cli.main(["--mode", "planet", "missing.png"]),
+        "host_stream_stitch": lambda: stitch(u8, Config()),
+        "blend_linear_host_stream": lambda: blend_linear_host_stream(
+            u8, plan, ordered=False, groups=2),
+        "blend_multiband_host_stream": lambda: blend_multiband_host_stream(
+            u8, plan, 2, groups=2),
+    }
+
+
+@pytest.mark.parametrize("entry", ["stitch_hetero", "estimate_cameras_on_card",
+                                   "cli_main", "host_stream_stitch",
+                                   "blend_linear_host_stream",
+                                   "blend_multiband_host_stream"])
+def test_entry_points_raise_without_card(monkeypatch, entry):
+    """stitch_hetero, the bundle adjustment on the card (BA_ON_HOST=False),
+    the CLI without --device, the stitch whose host-stream trigger fires
+    (OPENPANO_HOST_BLEND=1) and the host-stream blends refuse to fall back
+    to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("OPENPANO_HOST_BLEND", "1")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        estimate_cameras(conf, np.tile(np.eye(3), (n, n, 1, 1)),
-                         np.zeros((n, n, M, 2)), np.zeros((n, n, M, 2)),
-                         np.ones((n, n, M), bool), np.full((n, 2), 64.0),
-                         Config(BA_ON_HOST=False))
+        _no_card_entries()[entry]()

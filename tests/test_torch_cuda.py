@@ -1,4 +1,6 @@
-"""The CUDA kernels on the card against their plain versions.
+"""The CUDA kernels on the card against their plain versions, and the
+card's paths against the CPU or their in-memory forms (a CYLINDER +
+multiband stitch, BRIEF, the host-stream blends, the CLI).
 
 Needs an NVIDIA card and ``nvcc``; skips elsewhere (the kernels have no CPU
 mode: a CPU tensor takes the plain version).  Imports nothing of JAX, so it
@@ -212,3 +214,72 @@ def test_brief_card_equals_cpu(card):
     for g, c in zip(*out):
         assert torch.equal(g, c)
     assert int(out[1][-1][0]) > 100
+
+
+def _flat_plan_views(n=6):
+    """6 u8 views of 320x240 on a flat plan of 90 px translations (the data
+    of tests/test_torch_host_blend.py)."""
+    from openpano_torch.stitch.render import plan_render
+    from openpano_torch.synth import procedural_scene_large, render_views
+
+    views, _ = render_views(procedural_scene_large(600, 2400, seed=0), n,
+                            out_w=320, out_h=240, hfov_deg=30, overlap=0.55,
+                            seed=7)
+    homos = np.stack([np.eye(3) for _ in range(n)])
+    homos[:, 0, 2] = 90.0 * (np.arange(n) - n // 2)
+    plan = plan_render(homos, np.repeat([[320.0, 240.0]], n, 0), n // 2,
+                       "flat", 8000)
+    return np.round(views * 255).astype(np.uint8), plan
+
+
+@pytest.mark.parametrize("multiband", [0, 2])
+def test_host_stream_blend_equals_in_memory_on_card(card, multiband):
+    """The host-stream blends on the card (the default device) against the
+    card's in-memory blends of the uploaded stack: valid masks agree on
+    >= 99.9% of pixels, values within 1e-5 (linear) / 1e-4 (multiband)."""
+    from openpano_torch.stitch.multiband import blend_multiband_host_stream
+    from openpano_torch.stitch.render import blend, blend_linear_host_stream
+
+    u8, plan = _flat_plan_views()
+    if multiband:
+        got = blend_multiband_host_stream(u8, plan, multiband, groups=3)
+    else:
+        got = blend_linear_host_stream(u8, plan, ordered=True, groups=3)
+    src = torch.from_numpy(u8).to(card).to(torch.float32) / 255.0
+    want = blend(src, plan, ordered=True, multiband=multiband).cpu().numpy()
+    vg, vw = got[..., 0] >= 0, want[..., 0] >= 0
+    assert got.shape == want.shape and (vg == vw).mean() >= 0.999
+    both = vg & vw
+    assert both.mean() > 0.5
+    assert np.abs(got[both] - want[both]).max() <= (1e-4 if multiband
+                                                    else 1e-5)
+
+
+def test_cli_stitches_on_card(card, tmp_path, monkeypatch):
+    """``cli.main`` with no --device on two PNG views of 480x360: exit 0,
+    a PNG canvas wider than one view, K1 and K2 launched."""
+    from openpano_torch import Config, cli
+    from openpano_torch.io.image import read_img_u8, write_rgb
+    from openpano_torch.synth import procedural_scene_large, render_views
+
+    views, _ = render_views(procedural_scene_large(600, 2400, seed=0), 2,
+                            out_w=480, out_h=360, hfov_deg=30, overlap=0.6,
+                            seed=3)
+    files = []
+    for i, v in enumerate(views):
+        files.append(str(tmp_path / f"{i}.png"))
+        write_rgb(files[-1], v)
+    values = {k: getattr(Config, k) for k in Config.REFERENCE_KNOBS}
+    values.update(SIFT_WORKING_SIZE=400, MAX_KP_PER_IMAGE=1024,
+                  MAX_MATCHES_PER_PAIR=512)
+    cfg = tmp_path / "config.cfg"
+    cfg.write_text("".join(f"{k} {int(v) if isinstance(v, bool) else v}\n"
+                           for k, v in values.items()))
+    monkeypatch.chdir(tmp_path)
+    k1, k2 = (windows.orientation_histogram.launches,
+              windows.descriptor_histogram.launches)
+    assert cli.main(["-c", str(cfg), "-o", "out.png", *files]) == 0
+    assert windows.orientation_histogram.launches > k1
+    assert windows.descriptor_histogram.launches > k2
+    canvas = read_img_u8("out.png")
+    assert canvas.shape[1] > 480 and canvas.shape[0] > 100
