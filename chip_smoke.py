@@ -69,7 +69,17 @@ Phases, each fatal on failure:
   12. CYLINDER path: the headline views in sweep order in CYLINDER mode,
      FOCAL_LENGTH set so that the cylinder's radius is the views' true
      focal, counts read around this run alone: the canvas within 5% of the
-     size the true yaws give, a valid fraction above 0.3, a non-empty crop.
+     size the true yaws give, a valid fraction above 0.3, a non-empty crop;
+  13. mesh path: ``init_distributed(device="cuda")`` at world size 1 (one
+     NCCL rank, a file:// store), then (a) ``stitch_images(mesh=)`` on the
+     headline, (b) the same with MULTIBAND=2, (c) ``stitch_cylinder(mesh=)``
+     and (d) (a) with OPENPANO_SHARDED_BLEND_HOST=1, counts and collective
+     bytes read around each run alone: each run its path's gates, K1 and K2
+     launched as often as on its one-device path (10 times), valid masks
+     agreeing with that path's on >= 99.95% and a u8 difference of at most
+     1; (a)'s cameras within 1e-6 (focal) and 1e-8 (R) of the main path's,
+     its bundle adjustment on the card; (d) one band upload and (a)'s
+     canvas bit for bit.
 The second-to-last line is the kernel report as JSON; the last line is the
 device record.
 """
@@ -87,6 +97,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -97,8 +108,11 @@ from openpano_torch.camera.estimator import estimate_cameras  # noqa: E402
 from openpano_torch.ops import windows  # noqa: E402
 from openpano_torch.io.image import read_img_u8, write_rgb  # noqa: E402
 from openpano_torch.ops.imgproc import crop_with_mask  # noqa: E402
+from openpano_torch.parallel import init_distributed, make_mesh  # noqa: E402
+from openpano_torch.parallel import mesh as pmesh  # noqa: E402
 from openpano_torch.sift import brief  # noqa: E402
 from openpano_torch.stitch import render, stitcher  # noqa: E402
+from openpano_torch.stitch.cylstitcher import stitch_cylinder  # noqa: E402
 from openpano_torch.stitch.multiband import _roi_sizes, blend_multiband, \
     blend_multiband_host_stream  # noqa: E402
 from openpano_torch.stitch.render import blend_linear, \
@@ -130,6 +144,7 @@ CYLINDER = dict(CYLINDER=True, ESTIMATE_CAMERA=False, ORDERED_INPUT=True)
 MB_NCC_LIMIT = 0.97             # bench.py:173, multiband against linear
 HOST_BUDGET_GB = "1.0"          # the host-stream path's OPENPANO_HBM_BUDGET_GB
 HOST_GROUPS = 7                 # its bands: ceil(1.54 GB / (1.0 GB / 4))
+MESH_VALID_AGREE = 0.9995       # tests/test_parallel.py:61, mesh against one
 
 # name, wrapper (holds the launch count), kernel, plain version, TPU kernel
 KERNELS = (
@@ -597,25 +612,29 @@ def read_counts() -> dict:
             [(n, w) for n, w, _, _, _ in KERNELS] + [SLAB[:2]]}
 
 
-def drive(label: str, u8: np.ndarray, cfg: Config, key=None):
-    """stitch_images once over ``u8``, u8 out, with every launch count set
-    to 0 just before and read just after; prints the wall, the stages, the
-    peak device memory and the launches, and fails if a kernel of the path
-    never launched.  Returns (canvas, valid, info, launches); info holds
-    the stage times as ``stages_s``."""
+def drive(label: str, u8: np.ndarray, cfg: Config, key=None,
+          entry=stitch_images, **kw):
+    """``entry`` (stitch_images) once over ``u8``, u8 out, with every launch
+    count set to 0 just before and read just after; prints the wall, the
+    stages, the peak device memory and the launches, and fails if a kernel
+    of the path never launched.  ``kw`` goes to ``entry`` (``mesh``).
+    Returns (canvas, valid, info, launches); info holds the stage times as
+    ``stages_s`` and the bytes through each collective as
+    ``collective_bytes``."""
     reset_counts()
+    pmesh.reset_bytes()
     timer.reset()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     info = {}
-    canvas, valid = stitch_images(u8, cfg, key=key, output="u8",
-                                  info_out=info)
+    canvas, valid = entry(u8, cfg, key=key, output="u8", info_out=info, **kw)
     wall = time.perf_counter() - t0
     launches = read_counts()
     stages = {k: round(s, 4) for k, (_, s) in timer.totals().items()}
     info.update(stages_s=stages, wall_s=wall,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                collective_bytes=dict(pmesh.BYTES))
     print(f"{label}: {wall:.3f} s wall, {len(u8) / wall:.2f} img/s, peak "
           f"device memory {info['peak_gib']:.2f} GiB")
     print(f"{label} stages_s: {json.dumps(stages)}")
@@ -721,14 +740,14 @@ def camera_error(homos: np.ndarray, truth: dict, perm: np.ndarray) -> float:
 
 
 def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
-              multiband: int = 0, label: str | None = None):
+              multiband: int = 0, label: str | None = None, mesh=None):
     """stitch_images with the default Config (and ``multiband`` levels)
-    over the headline set, with the main path's gates.  Returns (canvas,
-    valid, info, launches)."""
+    over the headline set, with the main path's gates; sharded over
+    ``mesh`` when one is given.  Returns (canvas, valid, info, launches)."""
     cfg = Config(MULTIBAND=multiband, **HEADLINE)
     key = prng.key((0, 1), "cuda")                   # PRNGKey(1)
     label = label or ("multiband path" if multiband else "main path")
-    canvas, valid, info, launches = drive(label, u8, cfg, key)
+    canvas, valid, info, launches = drive(label, u8, cfg, key, mesh=mesh)
     print(f"bundle adjustment: {info['lm_iters']} LM iterations in "
           f"{info['lm_time_s']:.3f} s, ba_rms_px {info['ba_rms_px']:.4f} over "
           f"{info['ba_pairs']} pairs, {info['ba_points']} points; "
@@ -759,10 +778,10 @@ def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
 
 
 def multiband_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
-                   linear: tuple) -> tuple[dict, object]:
+                   linear: tuple) -> tuple:
     """The main path with MULTIBAND=2 (bench.py:147-173): its gates, the
     linear canvas's size, and NCC above 0.97 against the linear canvas.
-    Returns (launches, render plan)."""
+    Returns (canvas, valid, info, launches)."""
     canvas, valid, info, launches = main_path(u8, truth, perm, multiband=2)
     lin, lin_valid, lin_info = linear
     plan = info["plan"]
@@ -778,7 +797,7 @@ def multiband_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
           f"{(valid & lin_valid).mean():.4f} of the canvas, valid agree "
           f"{(valid == lin_valid).mean():.6f}")
     check(ncc > MB_NCC_LIMIT, f"multiband NCC against linear {ncc:.4f}")
-    return launches, plan
+    return canvas, valid, info, launches
 
 
 def u8_agreement(label: str, got: tuple, want: tuple) -> int:
@@ -988,14 +1007,18 @@ def expected_cylinder_canvas(truth: dict, inv_perm: np.ndarray,
     return plan.out_w, plan.out_h
 
 
-def cylinder_path(u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
+def cylinder_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
+                  mesh=None, label: str = "CYLINDER path"):
     """stitch_images in CYLINDER mode over the headline views in sweep
-    order, the cylinder's radius the views' true focal."""
+    order, the cylinder's radius the views' true focal; with ``mesh``,
+    ``stitch_cylinder(mesh=)`` (stitch_images drops a mesh in this mode).
+    Returns (canvas, valid, info, launches)."""
     inv_perm = np.argsort(perm)
     focal = truth["focal_px"] * 43.266 / np.hypot(VIEW_W, VIEW_H)
     cfg = Config(**CYLINDER, FOCAL_LENGTH=float(focal), **HEADLINE)
+    kw = {} if mesh is None else dict(entry=stitch_cylinder, mesh=mesh)
     canvas, valid, info, launches = drive(
-        "CYLINDER path", u8[inv_perm], cfg, prng.key((0, 1), "cuda"))
+        label, u8[inv_perm], cfg, prng.key((0, 1), "cuda"), **kw)
     want_w, want_h = expected_cylinder_canvas(truth, inv_perm, cfg)
     crop = crop_with_mask(canvas, valid)
     print(f"CYLINDER: FOCAL_LENGTH {focal:.4f}, h-factor {info['hfactor']} "
@@ -1013,7 +1036,117 @@ def cylinder_path(u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
           "CYLINDER: canvas height off")
     check(valid.mean() > 0.3, "CYLINDER: canvas mostly empty")
     check(crop.size > 0, "CYLINDER: empty crop")
-    return launches
+    return canvas, valid, info, launches
+
+
+def mesh_gates(label: str, got: tuple, launches: dict, one: tuple,
+               want: int):
+    """A mesh run against its one-device path ``one`` (canvas, valid, info,
+    launches): K1 and K2 launched ``want`` times (one launch per feature
+    batch: 10 on the headline, as on one device), valid masks agreeing on
+    >= 99.95%, a u8 difference of at most 1."""
+    for name, _, _, _, _ in KERNELS[:2]:
+        check(launches[name] == want,
+              f"{label}: {name} launched {launches[name]} times, not "
+              f"{want} (the one-device path {one[3][name]})")
+    check(got[0].shape == one[0].shape, f"{label}: canvas {got[0].shape} "
+          f"vs {one[0].shape}")
+    agree = float((got[1] == one[1]).mean())
+    check(agree >= MESH_VALID_AGREE,
+          f"{label}: valid masks agree on {agree:.6f}")
+    u8_agreement(f"{label} against the one-device path", got, one[:2])
+
+
+MESH_INFO = ("cams", "lm_iters", "lm_time_s", "stages_s", "wall_s",
+             "peak_gib", "collective_bytes")
+
+
+def mesh_runs(mesh, u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
+    """The runs of the mesh path, through the entry points a user calls:
+    (a) stitch_images(mesh=) on the headline, (b) the same with
+    MULTIBAND=2, (c) stitch_cylinder(mesh=), (d) (a) with
+    OPENPANO_SHARDED_BLEND_HOST=1, each with its path's gates.  Returns
+    {run: (canvas, valid, info, launches)} and under "uploads" the band
+    uploads of (d) by view count; info is cut to ``MESH_INFO``, so that the
+    runs hold no device memory."""
+    bands = []
+    real = render.band_slice
+
+    def recorder(imgs, ids, dev):
+        bands.append(len(ids))
+        return real(imgs, ids, dev)
+
+    runs = {
+        "a": main_path(u8, truth, perm, mesh=mesh, label="mesh (a) linear"),
+        "b": main_path(u8, truth, perm, multiband=2, mesh=mesh,
+                       label="mesh (b) multiband"),
+        "c": cylinder_path(u8, truth, perm, mesh=mesh,
+                           label="mesh (c) CYLINDER")}
+    os.environ["OPENPANO_SHARDED_BLEND_HOST"] = "1"
+    render.band_slice = recorder
+    try:
+        runs["d"] = main_path(u8, truth, perm, mesh=mesh,
+                              label="mesh (d) host-u8 blend")
+    finally:
+        render.band_slice = real
+        del os.environ["OPENPANO_SHARDED_BLEND_HOST"]
+    for k, (canvas, valid, info, launches) in runs.items():
+        print(f"mesh ({k}), collective bytes by stage: "
+              f"{json.dumps(pmesh.bytes_by_stage(info['collective_bytes']))}")
+        runs[k] = (canvas, valid, {i: info[i] for i in MESH_INFO if i in info},
+                   launches)
+    runs["uploads"] = bands
+    return runs
+
+
+def mesh_check(runs: dict, one: dict) -> dict:
+    """Gate the mesh runs (``mesh_runs``' results) against the one-device
+    runs (``one``: "main", "multiband", "CYLINDER" -> (canvas, valid, info,
+    launches)): ``mesh_gates``, (a)'s cameras within 1e-6 (focal) and 1e-8
+    (R) of the main path's, whose bundle adjustment ran on the host, (d)
+    one band upload and (a)'s canvas bit for bit.  Returns (a)'s
+    launches."""
+    want = -(-len(runs["a"][2]["cams"].focal) // FEATURE_BATCH)
+    for k, base in (("a", "main"), ("b", "multiband"), ("c", "CYLINDER"),
+                    ("d", "main")):
+        mesh_gates(f"mesh ({k})", runs[k][:2], runs[k][3], one[base], want)
+    info, main = runs["a"][2], one["main"][2]
+    dfocal = float(np.abs(info["cams"].focal - main["cams"].focal).max())
+    dR = float(np.abs(info["cams"].R - main["cams"].R).max())
+    print(f"mesh (a) bundle adjustment on the card: {info['lm_iters']} LM "
+          f"iterations in {info['lm_time_s']:.3f} s (the main path's on the "
+          f"host: {main['lm_iters']} in {main['lm_time_s']:.3f} s); cameras "
+          f"against the main path's: focal max abs diff {dfocal:.3e}, R max "
+          f"abs diff {dR:.3e}")
+    check(dfocal < 1e-6 and dR < 1e-8,
+          "mesh (a): cameras differ from the main path's")
+    print(f"mesh (d): band uploads, in views: {runs['uploads']}")
+    check(len(runs["uploads"]) == 1, "mesh (d): not one band upload")
+    same = all(np.array_equal(x, y) for x, y in zip(runs["a"][:2],
+                                                   runs["d"][:2]))
+    print(f"mesh (d) canvas equals (a)'s bit for bit: {same}")
+    check(same, "mesh (d): the host-u8 blend's canvas differs from (a)'s")
+    return runs["a"][3]
+
+
+def mesh_phase(u8: np.ndarray, truth: dict, perm: np.ndarray,
+               one: dict) -> dict:
+    """The mesh path at one NCCL rank in this process (world size 1, a
+    file:// store in a temporary directory): ``mesh_runs``, then
+    ``mesh_check``.  Returns (a)'s launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_distributed(f"file://{tmp}/store", 1, 0, device="cuda")
+        try:
+            mesh = make_mesh()
+            print(f"mesh: {mesh}, backend {dist.get_backend()}, world size "
+                  f"{dist.get_world_size()}, device "
+                  f"{pmesh.mesh_device(mesh)} "
+                  f"({time.perf_counter() - t0:.2f} s to start)")
+            runs = mesh_runs(mesh, u8, truth, perm)
+        finally:
+            dist.destroy_process_group()
+    return mesh_check(runs, one)
 
 
 def main(kernels_only: bool = False) -> int:
@@ -1063,20 +1196,27 @@ def main(kernels_only: bool = False) -> int:
     print(f"references and BRIEF: {time.perf_counter() - t0:.1f} s")
     trans_launches = trans_path(strip, xy)
     linear = main_path(u8, truth, perm)
-    launches = linear[-1]
-    mb_launches, mb_plan = multiband_path(u8, truth, perm, linear[:3])
+    launches = linear[3]
+    multiband = multiband_path(u8, truth, perm, linear[:3])
+    mb_launches, mb_plan = multiband[3], multiband[2]["plan"]
     cli_launches = cli_phase(u8, linear[:3])
     host_launches, _ = host_stream_path(u8, truth, perm, linear[:3])
     blend_memory_phase(u8, linear[2]["plan"], mb_plan)
-    del linear
-    cyl_launches = cylinder_path(u8, truth, perm)
+    cylinder = cylinder_path(u8, truth, perm)
+    cyl_launches = cylinder[3]
+    t0 = time.perf_counter()
+    mesh_launches = mesh_phase(u8, truth, perm, {
+        "main": linear, "multiband": multiband, "CYLINDER": cylinder})
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    del linear, multiband, cylinder
     for entry in report:
         k = entry["name"]
         entry.update(launches=launches[k], trans_launches=trans_launches[k],
                      multiband_launches=mb_launches[k],
                      cylinder_launches=cyl_launches[k],
                      cli_launches=cli_launches[k],
-                     host_stream_launches=host_launches[k])
+                     host_stream_launches=host_launches[k],
+                     mesh_launches=mesh_launches[k])
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": report}))

@@ -12,7 +12,8 @@ multiband blender, on the card; the CPU runs the kernels' plain versions
 when asked for (``device="cpu"``), which is what the parity tests do.  A
 uint8 stack too large for the device budget stays in host memory and blends
 band by band (``stitch/stitcher.py``).  ``python -m openpano_torch.cli`` is
-the command line, with the reference's debug modes.
+the command line, with the reference's debug modes.  ``mesh=`` shards a
+stitch over ``torch.distributed`` ranks (``parallel/``).
 """
 
 from .config import DEFAULT, Config
@@ -23,7 +24,7 @@ __all__ = ["Config", "DEFAULT", "stitch_images", "stitch_files", "__version__"]
 
 def stitch_images(imgs, cfg: Config | None = None, key=None,
                   output: str = "f32", device=None,
-                  info_out: dict | None = None):
+                  info_out: dict | None = None, mesh=None):
     """Stitch an [N, H, W, 3] image stack (uint8, or float32 in [0, 1]).
 
     Dispatches on the mode like the reference's work() (main.cc:205-235):
@@ -34,14 +35,23 @@ def stitch_images(imgs, cfg: Config | None = None, key=None,
     collects run metadata: keypoint counts, the homographies and the render
     plan; the match graph, the cameras and bundle adjustment statistics in
     the general modes; the chosen h-factor, its slope and the number of
-    trials in CYLINDER mode."""
+    trials in CYLINDER mode.
+
+    ``mesh`` (``parallel.make_mesh``) shards every stage of the general
+    modes over ``torch.distributed`` ranks (``stitch.stitcher.stitch``).
+    In CYLINDER mode the mesh is dropped and the cylinder stitcher runs on
+    ``device``, as the JAX package's ``stitch_images`` does; call
+    ``stitch_cylinder(mesh=...)`` to shard that mode."""
     cfg = cfg or DEFAULT
     if cfg.CYLINDER:
-        from .stitch.cylstitcher import stitch_cylinder as run
-    else:
-        from .stitch.stitcher import stitch as run
-    return run(imgs, cfg, key, output=output, device=device,
-               info_out=info_out)
+        from .stitch.cylstitcher import stitch_cylinder
+
+        return stitch_cylinder(imgs, cfg, key, output=output, device=device,
+                               info_out=info_out)
+    from .stitch.stitcher import stitch
+
+    return stitch(imgs, cfg, key, output=output, device=device,
+                  info_out=info_out, mesh=mesh)
 
 
 def stitch_files(paths, cfg: Config | None = None, out: str | None = None,

@@ -34,7 +34,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.debug import assert_finite, numeric_checks_enabled
+from ..utils.debug import NumericsError, assert_finite, \
+    numeric_checks_enabled
 from .rotation import drodrigues, rodrigues
 
 LM_MAX_ITER = 100       # incremental_bundle_adjuster.cc:24
@@ -230,24 +231,61 @@ def solve_sym_scaled_chol(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x[:, 0] / d
 
 
-def _rms(r: torch.Tensor, wm: torch.Tensor) -> float:
-    """sqrt(mean of squared residuals) over active points, two per point
-    (.cc:199-220)."""
-    npts = (wm > 0).sum().to(r.dtype) * 2.0
-    return float(torch.sqrt((r * r).sum() / torch.clamp(npts, min=1.0)))
+def _rms(r: torch.Tensor, wm: torch.Tensor, mesh=None,
+         count_bad: bool = False) -> tuple[float, int]:
+    """(sqrt(mean of squared residuals) over active points, two per point
+    (.cc:199-220); with ``count_bad`` the number of non-finite residuals,
+    else 0).  With ``mesh``, the sums are this rank's, added over the ranks
+    in f64 first by one all-reduce, so that every rank reads the same cost
+    and the same count."""
+    sums = [(r * r).sum(), (wm > 0).sum().to(r.dtype) * 2.0]
+    if count_bad:
+        sums.append((~torch.isfinite(r)).sum().to(r.dtype))
+    sums = torch.stack(sums)
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce_sum
+
+        sums = all_reduce_sum(mesh, sums, "ba")
+    err = float(torch.sqrt(sums[0] / torch.clamp(sums[1], min=1.0)))
+    return err, int(sums[2]) if count_bad else 0
+
+
+def _reduced(mesh, *parts: torch.Tensor) -> list[torch.Tensor]:
+    """``parts`` summed over the ranks by one f64 all-reduce (unchanged
+    without a mesh)."""
+    if mesh is None:
+        return list(parts)
+    from ..parallel.mesh import all_reduce_sum
+
+    flat = all_reduce_sum(mesh, torch.cat([p.reshape(-1) for p in parts]),
+                          "ba")
+    return [v.reshape(p.shape)
+            for v, p in zip(flat.split([p.numel() for p in parts]), parts)]
 
 
 def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
                       identity_idx: int, n_cam: int, lm_lambda: float,
                       adaptive: bool = False, max_iter: int = LM_MAX_ITER,
                       patience: int = NR_NON_DECREASE, rel_tol: float = 0.0,
-                      banded: bool = False, bucket: int | None = None):
+                      banded: bool = False, bucket: int | None = None,
+                      mesh=None):
     """The LM loop (optimize(), .cc:117-168) over a pair-major problem, on
     the device of ``params`` and ``prob``.  params: [n, 6] float64 rows
     (focal, ppx, ppy, rx, ry, rz).  ``banded`` solves the normal equations
     by cyclic block Thomas elimination (chain/ring match graphs) instead of
     the dense Cholesky.  ``bucket`` (the slot count) names the run in a
-    numeric-check failure.  Returns (optimized params [n, 6], iterations)."""
+    numeric-check failure.  Returns (optimized params [n, 6], iterations).
+
+    ``mesh``: ``prob`` holds this rank's block of the pair slots; the normal
+    equations (JtJ and Jtb, or the banded D, U, C and rhs) and the cost's
+    two sums are added over the ranks in f64 before they are used, and the
+    solve runs replicated.  So every value that picks a branch (the accept
+    test, the rejection count, the damping) is the same on every rank, and
+    every rank takes every branch and every collective together.  Under
+    ``OPENPANO_CHECK_NUMERICS=1`` the same holds for a raise: the residuals,
+    the one rank-local quantity checked, are counted in the cost's
+    all-reduce; the rest (normal equations, step, trial parameters) are
+    reduced or replicated already."""
     if not lm_lambda > 0:
         raise ValueError("LM damping must be positive (SPD precondition)")
     checks = numeric_checks_enabled()
@@ -255,6 +293,15 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
     def check(**named):
         if checks:
             assert_finite(f"ba_lm[{bucket}] iteration {itr}", **named)
+
+    def cost(resid, wm) -> float:
+        err, bad = _rms(resid, wm, mesh, count_bad=checks and mesh is not None)
+        if bad:
+            raise NumericsError(f"[ba_lm[{bucket}] iteration {itr}] "
+                                f"'residuals' has {bad} non-finite values "
+                                f"over the ranks")
+        check(residuals=resid if mesh is None else None, cost=err)
+        return err
 
     dt, dev = params.dtype, params.device
     upd = torch.ones(n_cam, 6, dtype=dt, device=dev)
@@ -266,22 +313,23 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
     best_flat = params.reshape(-1)
     nr_nd, itr, lam = 0, 0, float(lm_lambda)
     resid, wm = _pairs_residuals(params, prob)
-    best_err = _rms(resid, wm)
-    check(residuals=resid, cost=best_err)
+    best_err = cost(resid, wm)
     while itr < max_iter and nr_nd <= patience:
         cur = best_flat.reshape(n_cam, 6)
         if banded:
             from .banded import assemble_banded, solve_block_cyclic
 
             Bp, bp, F, Tc = _pairs_ne_blocks(cur, resid, prob, upd)
-            D, U, C, rhs = assemble_banded(Bp, bp, F, Tc, n_cam)
+            D, U, C, rhs = _reduced(mesh,
+                                    *assemble_banded(Bp, bp, F, Tc, n_cam))
             check(normal_equations_D=D, normal_equations_U=U,
                   normal_equations_C=C, normal_equations_rhs=rhs)
             dvec = (damp_unit * lam).reshape(n_cam, 6)
             D = D + torch.eye(6, dtype=dt, device=dev)[None] * dvec[:, :, None]
             delta = solve_block_cyclic(D, U, C, rhs).reshape(-1)
         else:
-            JtJ, Jtb = _pairs_normal_equations(cur, resid, prob, n_cam, upd)
+            JtJ, Jtb = _reduced(mesh, *_pairs_normal_equations(
+                cur, resid, prob, n_cam, upd))
             check(normal_equations_JtJ=JtJ, normal_equations_Jtb=Jtb)
             delta = solve_sym_scaled_chol(
                 JtJ + torch.diag(damp_unit * lam), Jtb)
@@ -289,8 +337,7 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
         new_flat = best_flat - delta * upd_flat
         check(trial_params=new_flat)
         resid, wm = _pairs_residuals(new_flat.reshape(n_cam, 6), prob)
-        new_err = _rms(resid, wm)
-        check(residuals=resid, cost=new_err)
+        new_err = cost(resid, wm)
         improved = new_err < best_err - max(1e-3, rel_tol * best_err)
         if improved:
             best_flat, best_err, nr_nd = new_flat, new_err, 0

@@ -16,6 +16,7 @@ per bucket; the per-call activation weights follow them.
 
 from __future__ import annotations
 
+import functools
 import heapq
 import os
 import time
@@ -163,7 +164,14 @@ def _fill_slabs(activation, nslots, to_pos, from_pos, valid, strided: bool):
     return pt_to, pt_from, w, cam_a, cam_b, swapped
 
 
-def _ba_device(cfg: Config, device) -> torch.device:
+def _ba_device(cfg: Config, device, mesh=None) -> torch.device:
+    """Where the LM runs: the mesh's device whatever ``BA_ON_HOST`` says (as
+    in the JAX package, whose mesh LM runs on the devices); else the host
+    CPU under ``BA_ON_HOST``, else ``device``."""
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+
+        return mesh_device(mesh)
     if cfg.BA_ON_HOST:
         return torch.device("cpu")
     from ..stitch.stitcher import resolve_device
@@ -181,6 +189,7 @@ def estimate_cameras(
     cfg: Config,
     stats: dict | None = None,
     device=None,
+    mesh=None,
 ) -> CameraSet:
     """Full CameraEstimator::estimate (camera_estimator.cc:46-103).
 
@@ -188,9 +197,13 @@ def estimate_cameras(
     means the card, and raises without one); with BA_ON_HOST it runs on
     the CPU.  ``stats`` (a dict) accumulates 'lm_iters' and 'lm_time_s'
     over the whole schedule and receives 'ba_rms_px', 'ba_points' and
-    'ba_pairs'."""
+    'ba_pairs'.
+
+    ``mesh`` (``parallel.make_mesh``): every LM run shards its pair slots
+    over the ranks (``parallel.dist_ba``) on this rank's device, whatever
+    ``BA_ON_HOST`` says; every rank returns the same cameras."""
     n = confidence.shape[0]
-    dev = _ba_device(cfg, device)
+    dev = _ba_device(cfg, device, mesh)
 
     focal = (estimate_focal_robust if cfg.ROBUST_FOCAL else estimate_focal)(
         confidence, homos)
@@ -274,7 +287,13 @@ def estimate_cameras(
         b = _bucket(nact, Pc if use_capped else P)
         with total_timer(f"ba_lm[{b}]"):
             t0 = time.perf_counter()
-            out, iters = ba_optimize_pairs(
+            if mesh is None:
+                run = ba_optimize_pairs
+            else:
+                from ..parallel.dist_ba import ba_optimize_pairs_sharded
+
+                run = functools.partial(ba_optimize_pairs_sharded, mesh=mesh)
+            out, iters = run(
                 torch.as_tensor(params, device=dev),
                 prob_for(b, nact, use_capped), root, n, cfg.LM_LAMBDA,
                 adaptive=cfg.BA_ADAPTIVE_LM, max_iter=max_iter,

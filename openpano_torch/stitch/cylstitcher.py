@@ -28,8 +28,8 @@ from ..ops.imgproc import INVALID, sample_bilinear
 from ..utils import prng
 from ..utils.timer import total_timer
 from .render import RenderPlan, blend, plan_render
-from .stitcher import prologue, to_output
-from .stitcherbase import compute_features
+from .stitcher import blend_sharded, prologue, to_output
+from .stitcherbase import compute_features, compute_features_sharded
 from .warp import make_projector, warp_images, warp_keypoints
 
 
@@ -49,7 +49,7 @@ def _estimate_chain(matches: MatchResult, pos, valid, whs: np.ndarray, ii,
 
 
 def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
-                    device=None, info_out: dict | None = None):
+                    device=None, info_out: dict | None = None, mesh=None):
     """CylinderStitcher::build (cylstitcher.cc:20-28).
 
     imgs: [n, H, W, 3] uint8 or float32 in [0, 1] (numpy or torch), of one
@@ -57,8 +57,14 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
     corrected canvas (float32 numpy, INVALID=-1 where empty, pre-crop), or
     ``(canvas_u8, valid)`` with output="u8".  ``info_out`` collects the
     keypoint counts, the chosen ``hfactor`` with its ``slope`` and the
-    ``trials`` of the search, the homographies and the render plan."""
-    dev, key = prologue(cfg, output, key, device)
+    ``trials`` of the search, the homographies and the render plan.
+
+    mesh: as for ``stitcher.stitch``: the features shard over the ranks'
+    images, each rank warps its block of the images and the warped images
+    are all-gathered, and the flat-projection blend runs over the ranks'
+    column bands before the perspective correction.  The h-factor search
+    and the homography chain are small host math, run on every rank."""
+    dev, key = prologue(cfg, output, key, device, mesh)
     imgs = torch.as_tensor(np.asarray(imgs) if not torch.is_tensor(imgs)
                            else imgs)
     n, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
@@ -66,7 +72,8 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
     with total_timer("upload"):
         imgs = imgs.to(dev)
     with total_timer("calc_feature"):
-        feats = compute_features(imgs, cfg)
+        feats = (compute_features(imgs, cfg) if mesh is None
+                 else compute_features_sharded(imgs, cfg, mesh))
     kpos, kvalid = feats.pos, feats.valid    # half-shifted, unwarped
     with total_timer("match_2nn"):
         matches = match_adjacent_pairs(feats.desc, feats.valid, cfg)
@@ -121,7 +128,10 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
 
     # ---- warp every image and keypoint (cylstitcher.cc:64-67) ----
     with total_timer("warp"):
-        warped = warp_images(proj, imgs, wH, wW, W, H)
+        if mesh is None:
+            warped = warp_images(proj, imgs, wH, wW, W, H)
+        else:
+            warped = _warp_sharded(proj, imgs, wH, wW, W, H, mesh)
         wkpos = warp_keypoints(proj, kpos, W, H)
 
     # ---- accumulate homographies (cylstitcher.cc:69-86) ----
@@ -149,7 +159,12 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
     with total_timer("blend"):
         plan = plan_render(homos, wwh.astype(np.float64), mid, "flat",
                            cfg.MAX_OUTPUT_SIZE)
-        canvas = blend(warped, plan, ordered=True, multiband=cfg.MULTIBAND)
+        if mesh is None:
+            canvas = blend(warped, plan, ordered=True,
+                           multiband=cfg.MULTIBAND)
+        else:
+            canvas = blend_sharded(warped, plan,
+                                   cfg.replace(ORDERED_INPUT=True), mesh)
         del warped
         canvas = perspective_correction(canvas, plan, homos, wwh, mid)
         result = to_output(canvas, output)
@@ -159,6 +174,21 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
             hfactor=state["bestfactor"], slope=state["slope"],
             trials=state["trials"], homos=homos, plan=plan)
     return result
+
+
+def _warp_sharded(proj, imgs: torch.Tensor, wH: int, wW: int, W: int, H: int,
+                  mesh) -> torch.Tensor:
+    """The cylindrical warp of this rank's contiguous block of the images
+    (the image axis padded to a mesh multiple with copies of image 0),
+    all-gathered into the [n, wH, wW, 3] stack on every rank."""
+    from ..parallel.mesh import all_gather, shard_on
+
+    n = imgs.shape[0]
+    blk = shard_on(mesh, n)
+    ids = torch.as_tensor([i if i < n else 0 for i in blk],
+                          device=imgs.device)
+    mine = warp_images(proj, imgs[ids], wH, wW, W, H)
+    return all_gather(mesh, mine, "warp")[:n]
 
 
 def perspective_correction(canvas: torch.Tensor, plan: RenderPlan,

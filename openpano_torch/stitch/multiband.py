@@ -14,7 +14,9 @@ Reference: stitch/multiband.{hh,cc}; counterpart of the single-device
      (multiband.cc:75-108); final clamp to [0,1] (multiband.cc:113-121).
 
 ``blend_multiband_host_stream`` runs the same blend band by band from a
-host image stack, with the cross-band terms carried from band to band.
+host image stack, with the cross-band terms carried from band to band;
+``blend_multiband_sharded`` runs one band per rank, the cross-band terms
+sent to the neighbouring ranks.
 
 Planes live in one [M, Rh, Rw, 4] buffer, one per render item (a
 wrap-straddling image contributes one item per canvas-edge strip), with
@@ -36,7 +38,7 @@ from ..ops.gaussian import blur
 from ..ops.imgproc import INVALID
 from .projection import PROJECTIONS
 from .render import RenderPlan, _sample_bilinear_paired, _tile_jobs, \
-    band_jobs_local, band_slice, pair_imgs_x
+    band_jobs_local, band_paired, pair_imgs_x
 
 EPS = 1e-6
 
@@ -196,11 +198,12 @@ def blend_multiband(imgs: torch.Tensor, plan: RenderPlan,
 _NO_ITEM = 1 << 30
 
 
-def _band_planes(imgs: np.ndarray, plan: RenderPlan, jobs, rh: int, rw: int,
+def _band_planes(imgs, plan: RenderPlan, jobs, rh: int, rw: int,
                  dev) -> torch.Tensor:
     """First-level planes [J, Rh, Rw, 4] of a band's items from its own
-    upload of the host images they read; each RoI grid starts at the item's
-    placement origin, as there."""
+    images (``band_paired``: uploaded from a host stack, or gathered from
+    one on the device); each RoI grid starts at the item's placement
+    origin, as there."""
     ids = np.unique(jobs[0])
     if not len(ids):
         return torch.zeros(0, rh, rw, 4, dtype=torch.float32, device=dev)
@@ -208,22 +211,43 @@ def _band_planes(imgs: np.ndarray, plan: RenderPlan, jobs, rh: int, rw: int,
                                     device=dev)
     idx, rng, org, _ = band_jobs_local(jobs, ids)
     ranges = np.concatenate([org, rng[:, 2:]], 1).astype(np.int64)
-    return _first_level(band_slice(imgs, ids, dev), f32(plan.homo_invs[ids]),
+    return _first_level(band_paired(imgs, ids, dev), f32(plan.homo_invs[ids]),
                         f32(plan.whs[ids]), idx, ranges, f32(plan.proj_min),
                         f32(plan.resolution), plan.proj, rh, rw)
 
 
+def _fold_seam(maxw: torch.Tensor, minid: torch.Tensor, w: torch.Tensor,
+               wid):
+    """Fold weights ``w`` of item (or per-pixel item id) ``wid`` into the
+    seam state (max weight, min item id among those attaining it) in
+    place: the in-memory first-attainer rule, whatever the fold order."""
+    tie = (w == maxw) & (w > 0)
+    minid.copy_(torch.where(w > maxw, wid, torch.where(
+        tie, torch.clamp(minid, max=wid), minid)))
+    torch.maximum(maxw, w, out=maxw)
+
+
+def _fold_band_items(planes: torch.Tensor, org, gid, maxw: torch.Tensor,
+                     minid: torch.Tensor, rh: int, rw: int):
+    """Fold a band's items, at origins ``org`` of the seam frame, in."""
+    for i, ((ox, oy), g) in enumerate(zip(org, gid)):
+        _fold_seam(maxw[oy : oy + rh, ox : ox + rw],
+                   minid[oy : oy + rh, ox : ox + rw], planes[i, ..., 3],
+                   int(g))
+
+
 def _mb_host_band_step(planes: torch.Tensor, org, gid, minid: torch.Tensor,
-                       lvl_in, band_level: int, Hp: int, SW: int, rh: int,
+                       halo, band_level: int, Hp: int, SW: int, rh: int,
                        rw: int):
-    """One column band of the host-stream multiband blend.  The band's
-    items sit at strip-local origins ``org`` in a [Hp, SW + rw] frame;
-    ``minid`` is the canvas seam's winner over that frame.  Each level's
-    (sum w * band, sum w) arrives from band g-1 as an additive halo over
-    the first rw columns and leaves for band g+1 as the last rw.  Per-item
-    blurs are item-local, so the band decomposition is exact up to the f32
-    order of the halo additions.  Returns (strip [Hp, SW, 3] f32, INVALID
-    where empty; level halos)."""
+    """One column band of the host-stream (and sharded) multiband blend.
+    The band's items sit at strip-local origins ``org`` in a [Hp, SW + rw]
+    frame; ``minid`` is the canvas seam's winner over that frame.  At each
+    level ``halo(level, spill)`` hands on this band's (sum w * band, sum w)
+    over the last rw columns, [Hp, rw, 4], and returns band g-1's over the
+    first rw (None: nothing spills in), which is added after the band's
+    own items.  Per-item blurs are item-local, so the band decomposition
+    is exact up to the f32 order of the halo additions.  Returns the strip
+    [Hp, SW, 3] f32, INVALID where empty."""
     dev = minid.device
     BW = SW + rw
     J = len(gid)
@@ -237,7 +261,6 @@ def _mb_host_band_step(planes: torch.Tensor, org, gid, minid: torch.Tensor,
     target = torch.zeros(Hp, SW, 3, dtype=torch.float32, device=dev)
     visited = torch.zeros(Hp, SW, dtype=torch.bool, device=dev)
     cur = planes
-    lvl_out = []
     for level in range(band_level):
         is_last = level == band_level - 1
         if is_last or J == 0:
@@ -254,10 +277,10 @@ def _mb_host_band_step(planes: torch.Tensor, org, gid, minid: torch.Tensor,
                 band = band - nxt[i, ..., :3]
             slab(isum, i).add_(band * w[..., None])
             slab(wsum, i).add_(w)
-        hic, hwc = lvl_in[level]
-        isum[:, :rw] += hic
-        wsum[:, :rw] += hwc
-        lvl_out.append((isum[:, SW:], wsum[:, SW:]))
+        got = halo(level, torch.cat([isum[:, SW:], wsum[:, SW:, None]], -1))
+        if got is not None:
+            isum[:, :rw] += got[..., :3]
+            wsum[:, :rw] += got[..., 3]
         isum, wsum = isum[:, :SW], wsum[:, :SW]
         has = wsum >= EPS
         contrib = torch.where(has[..., None],
@@ -268,9 +291,8 @@ def _mb_host_band_step(planes: torch.Tensor, org, gid, minid: torch.Tensor,
                                          target))
         visited = visited | has
         cur = nxt
-    strip = torch.where(visited[..., None], torch.clamp(target, 0.0, 1.0),
-                        INVALID)
-    return strip, lvl_out
+    return torch.where(visited[..., None], torch.clamp(target, 0.0, 1.0),
+                       INVALID)
 
 
 def blend_multiband_host_stream(imgs: np.ndarray, plan: RenderPlan,
@@ -308,27 +330,84 @@ def blend_multiband_host_stream(imgs: np.ndarray, plan: RenderPlan,
     maxw = torch.zeros(Hp, Wp + rw, dtype=torch.float32, device=dev)
     minid = torch.full((Hp, Wp + rw), _NO_ITEM, dtype=torch.int32, device=dev)
     for jobs in band_jobs:
-        planes = _band_planes(imgs, plan, jobs, rh, rw, dev)
-        for i, ((ox, oy), g) in enumerate(zip(jobs[2], jobs[3])):
-            mw = maxw[oy : oy + rh, ox : ox + rw]
-            mi = minid[oy : oy + rh, ox : ox + rw]
-            w = planes[i, ..., 3]
-            tie = (w == mw) & (w > 0)
-            mi.copy_(torch.where(w > mw, int(g), torch.where(
-                tie, torch.clamp(mi, max=int(g)), mi)))
-            torch.maximum(mw, w, out=mw)
-        del planes
+        _fold_band_items(_band_planes(imgs, plan, jobs, rh, rw, dev),
+                         jobs[2], jobs[3], maxw, minid, rh, rw)
     del maxw
 
-    lvl = [(torch.zeros(Hp, rw, 3, dtype=torch.float32, device=dev),
-            torch.zeros(Hp, rw, dtype=torch.float32, device=dev))
+    lvl = [torch.zeros(Hp, rw, 4, dtype=torch.float32, device=dev)
            for _ in range(band_level)]
+
+    def carry(level, spill):
+        # band g-1's spill in, band g's out for band g+1
+        got, lvl[level] = lvl[level], spill
+        return got
+
     strips = []
     for g, jobs in enumerate(band_jobs):
         org = jobs[2].astype(np.int64) - [g * SW, 0]     # strip-local
-        strip, lvl = _mb_host_band_step(
+        strip = _mb_host_band_step(
             _band_planes(imgs, plan, jobs, rh, rw, dev), org, jobs[3],
-            minid[:, g * SW : (g + 1) * SW + rw], lvl, band_level, Hp, SW,
+            minid[:, g * SW : (g + 1) * SW + rw], carry, band_level, Hp, SW,
             rh, rw)
         strips.append(strip[: plan.out_h].cpu().numpy())
     return np.concatenate(strips, axis=1)[:, : plan.out_w]
+
+
+def blend_multiband_sharded(imgs, plan: RenderPlan, band_level: int,
+                            mesh) -> torch.Tensor:
+    """The multiband blend over the ranks of ``mesh``, one canvas column band
+    each (``multiband.blend_multiband_sharded`` there), on the bands and
+    band step of the host stream.  Rank g takes the render items whose RoI
+    origin lies in its band (``_tile_jobs(exact=True, item_slabs=True)``,
+    SW >= Rw, so an item spills into band g + 1 at most) and uploads (or
+    gathers) only their images.
+
+      1. The seam: rank g folds its items into a [Hp, SW + Rw] frame of (max
+         weight, min item id), sends the spill columns right, folds the
+         ones it receives into its head columns, and sends the combined
+         head back left, where it replaces the sender's spill columns.
+         Only bands g - 1 and g reach band g's head columns, so every
+         column then holds the fold of every item that covers it: the
+         in-memory seam, which the JAX package's one-way halo is not
+         (ROADMAP Queue 3).
+      2. The levels: ``_mb_host_band_step``, each level's spill sent right
+         as an additive halo.
+    The strips are all-gathered: every rank returns the [out_h, out_w, 3]
+    canvas (f32 on its device, INVALID where empty).  Device memory per
+    rank holds one band's images, planes and frames.
+
+    imgs: a host numpy stack [N, H, W, 3] (u8 or f32), or a stack on the
+    rank's device."""
+    from ..parallel.mesh import all_gather, halo_left, halo_right, \
+        mesh_device
+
+    nd, g, dev = mesh.size(), mesh.get_local_rank(), mesh_device(mesh)
+    rh, rw = _roi_sizes(plan)
+    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(
+        plan, nd, item_slabs=True, exact=True)
+    assert G == nd and SW >= rw, (G, nd, SW, rw)
+    jobs = band_jobs[g]
+    org = jobs[2].astype(np.int64) - [g * SW, 0]         # strip-local
+    planes = _band_planes(imgs, plan, jobs, rh, rw, dev)
+
+    maxw = torch.zeros(Hp, SW + rw, dtype=torch.float32, device=dev)
+    minid = torch.full((Hp, SW + rw), _NO_ITEM, dtype=torch.int32,
+                       device=dev)
+    _fold_band_items(planes, org, jobs[3], maxw, minid, rh, rw)
+    # the weights' f32 bits travel as int32 beside the ids: one message
+    got = halo_right(mesh, torch.stack([maxw[:, SW:].view(torch.int32),
+                                        minid[:, SW:]], -1), "blend")
+    if got is not None:
+        _fold_seam(maxw[:, :rw], minid[:, :rw],
+                   got[..., 0].contiguous().view(torch.float32), got[..., 1])
+    back = halo_left(mesh, minid[:, :rw], "blend")
+    if back is not None:
+        minid[:, SW:] = back
+    del maxw
+
+    strip = _mb_host_band_step(
+        planes, org, jobs[3], minid,
+        lambda level, spill: halo_right(mesh, spill, "blend"), band_level,
+        Hp, SW, rh, rw)
+    canvas = all_gather(mesh, strip.transpose(0, 1), "blend").transpose(0, 1)
+    return canvas[: plan.out_h, : plan.out_w]

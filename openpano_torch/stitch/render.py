@@ -21,7 +21,9 @@ w = 0.5 - |c/w - 0.5| (times the vertical factor for unordered input;
 blender.cc:27-36), and adds into the canvas accumulators.  Jobs add in the
 JAX package's order (bands, then items), so the canvas is the same sum.
 ``blend_linear_host_stream`` runs the same jobs band by band from an image
-stack in host memory, carrying each band's spill columns to the next.
+stack in host memory, carrying each band's spill columns to the next;
+``blend_linear_sharded`` runs them one band per rank, the spill columns
+sent to the next rank.
 """
 
 from __future__ import annotations
@@ -358,32 +360,58 @@ def band_slice(imgs: np.ndarray, img_ids: np.ndarray, dev) -> torch.Tensor:
     return pair_imgs_x(band)
 
 
+def band_paired(imgs, img_ids: np.ndarray, dev) -> torch.Tensor:
+    """A band's images x-paired in f32 on ``dev``: uploaded from a host
+    stack (``band_slice``, the upload a test can count), or gathered from a
+    stack already on the device (u8 taken as v / 255 either way)."""
+    if isinstance(imgs, np.ndarray):
+        return band_slice(imgs, img_ids, dev)
+    band = imgs[torch.as_tensor(img_ids, device=imgs.device)]
+    band = band.to(torch.float32)
+    if imgs.dtype == torch.uint8:
+        band = band / 255.0
+    return pair_imgs_x(band)
+
+
 def band_jobs_local(jobs, img_ids: np.ndarray):
     """A band's jobs with their image indices remapped into its slice."""
     return (np.searchsorted(img_ids, jobs[0]), *jobs[1:])
 
 
-def _host_band_step(band6, hinvs, whs, jobs, plan: RenderPlan, halo_c,
-                    halo_w, x0: int, ordered: bool, TH: int, TW: int, Hp: int,
-                    SW: int, u8_out: bool):
-    """One column band of the single-device host-stream blend: run the
-    band's jobs from its own image slice into a [Hp, SW + TW] accumulator
-    pair whose column 0 is canvas column ``x0``, fold in the previous
-    band's spill halo, and return (final strip, next halo).  The strip is
-    [Hp, SW, 3] f32 (INVALID where empty), or with ``u8_out`` [Hp, SW, 4]
-    RGBA u8: the rounded colour, 255 and alpha 0 where empty."""
-    dev = halo_c.device
+def _band_accumulate(imgs, jobs, plan: RenderPlan, g: int, ordered: bool,
+                     TH: int, TW: int, Hp: int, SW: int, dev):
+    """Band g's jobs from its own images into a [Hp, SW + TW] (colour,
+    weight) accumulator pair whose column 0 is canvas column g * SW."""
     c = torch.zeros(Hp, SW + TW, 3, dtype=torch.float32, device=dev)
     w = torch.zeros(Hp, SW + TW, dtype=torch.float32, device=dev)
-    if len(jobs[0]):
-        _run_jobs(c, w, band6, hinvs, whs, jobs, plan, ordered, TH, TW, x0)
-    c[:, :TW] += halo_c
-    w[:, :TW] += halo_w
+    ids = np.unique(jobs[0])
+    if len(ids):
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        _run_jobs(c, w, band_paired(imgs, ids, dev),
+                  f32(plan.homo_invs[ids]), f32(plan.whs[ids]),
+                  band_jobs_local(jobs, ids), plan, ordered, TH, TW, g * SW)
+    return c, w
+
+
+def _spill(c, w, SW: int) -> torch.Tensor:
+    """A band's spill columns past SW as one [Hp, TW, 4] (colour, weight)
+    halo for the next band."""
+    return torch.cat([c[:, SW:], w[:, SW:, None]], -1)
+
+
+def _band_finish(c, w, halo, TW: int, SW: int, u8_out: bool):
+    """Fold the previous band's spill ``halo`` (None: nothing spills in)
+    into the head columns and normalize the strip: [Hp, SW, 3] f32
+    (INVALID where empty), or with ``u8_out`` [Hp, SW, 4] RGBA u8, the
+    rounded colour, 255 and alpha 0 where empty."""
+    if halo is not None:
+        c[:, :TW] += halo[..., :3]
+        w[:, :TW] += halo[..., 3]
     strip = _normalize(c[:, :SW], w[:, :SW])
     if u8_out:
         u8, valid = f32_to_u8(strip)
         strip = torch.cat([u8, valid[..., None].to(torch.uint8)], -1)
-    return strip, c[:, SW:], w[:, SW:]
+    return strip
 
 
 def blend_linear_host_stream(imgs: np.ndarray, plan: RenderPlan,
@@ -412,22 +440,44 @@ def blend_linear_host_stream(imgs: np.ndarray, plan: RenderPlan,
     dev = resolve_device(device)
     G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, groups, exact=True)
     assert G == groups, (G, groups)
-    halo_c = torch.zeros(Hp, TW, 3, dtype=torch.float32, device=dev)
-    halo_w = torch.zeros(Hp, TW, dtype=torch.float32, device=dev)
-    strips = []
+    halo, strips = None, []
     for g, jobs in enumerate(band_jobs):
-        ids = np.unique(jobs[0])
-        band6 = band_slice(imgs, ids, dev) if len(ids) else None
-        strip, halo_c, halo_w = _host_band_step(
-            band6,
-            torch.as_tensor(plan.homo_invs[ids], dtype=torch.float32,
-                            device=dev),
-            torch.as_tensor(plan.whs[ids], dtype=torch.float32, device=dev),
-            band_jobs_local(jobs, ids), plan, halo_c, halo_w, g * SW,
-            ordered, TH, TW, Hp, SW, u8_out)
-        del band6
+        c, w = _band_accumulate(imgs, jobs, plan, g, ordered, TH, TW, Hp,
+                                SW, dev)
+        strip = _band_finish(c, w, halo, TW, SW, u8_out)
+        halo = _spill(c, w, SW)
         strips.append(strip[: plan.out_h].cpu().numpy())
     return np.concatenate(strips, axis=1)[:, : plan.out_w]
+
+
+def blend_linear_sharded(imgs, plan: RenderPlan, ordered: bool,
+                         mesh) -> torch.Tensor:
+    """The linear blend over the ranks of ``mesh``, one canvas column band
+    each (``render.blend_linear_sharded`` there): rank g runs the band-g
+    jobs of ``_tile_jobs(exact=True)`` (one slab per render item, as the
+    host stream) into a [Hp, SW + TW] strip, sends its spill columns to rank
+    g + 1, adds the halo rank g - 1 sent, normalizes its strip, and the
+    strips are all-gathered into the canvas, which every rank returns
+    ([out_h, out_w, 3] f32 on the rank's device, INVALID where empty).  A
+    band-g job spills into strip g + 1 at most (SW >= TW), so one halo
+    completes the sums; the arithmetic is the host stream's over the same
+    bands, in the same order.
+
+    imgs: a host numpy stack [N, H, W, 3] (u8 or f32): each rank uploads
+    only its band's images (one ``band_slice`` call), so no rank holds the
+    stack; or a stack on the rank's device, from which each band gathers
+    its images."""
+    from ..parallel.mesh import all_gather, halo_right, mesh_device
+
+    nd, g, dev = mesh.size(), mesh.get_local_rank(), mesh_device(mesh)
+    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, nd, exact=True)
+    assert G == nd, (G, nd)
+    c, w = _band_accumulate(imgs, band_jobs[g], plan, g, ordered, TH, TW, Hp,
+                            SW, dev)
+    halo = halo_right(mesh, _spill(c, w, SW), "blend")
+    strip = _band_finish(c, w, halo, TW, SW, False)
+    canvas = all_gather(mesh, strip.transpose(0, 1), "blend").transpose(0, 1)
+    return canvas[: plan.out_h, : plan.out_w]
 
 
 def blend(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,

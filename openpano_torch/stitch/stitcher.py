@@ -25,15 +25,18 @@ import torch
 from ..camera.camera import estimate_focal, estimate_focal_robust, intrinsic
 from ..camera.estimator import estimate_cameras
 from ..config import Config
-from ..geometry.ransac import ESTIMATE_MIN_NR_MATCH, estimate_transform_batch
+from ..geometry.ransac import ESTIMATE_MIN_NR_MATCH, MatchInfo, \
+    estimate_transform_batch
 from ..match.matcher import MatchResult, match_all_pairs, match_ring_pairs, \
     pair_indices
 from ..sift.descriptor import Features
 from ..utils import prng
 from ..utils.debug import assert_finite
 from ..utils.timer import total_timer
-from .render import blend, blend_linear_host_stream, f32_to_u8, plan_render
-from .stitcherbase import HostImages, compute_features
+from .render import blend, blend_linear_host_stream, blend_linear_sharded, \
+    f32_to_u8, plan_render
+from .stitcherbase import HostImages, compute_features, \
+    compute_features_sharded
 
 
 class PairwiseGraph:
@@ -70,9 +73,16 @@ class PairwiseGraph:
 
 def build_pairwise_graph(feats: Features, whs: torch.Tensor, cfg: Config,
                          key: torch.Tensor, ordered: bool,
-                         affine: bool) -> PairwiseGraph:
+                         affine: bool, mesh=None) -> PairwiseGraph:
     """2-NN matching over the ordered ring (or all pairs), then RANSAC over
-    the pairs with enough matches to connect."""
+    the pairs with enough matches to connect.
+
+    ``mesh``: the features are every rank's (replicated); the pair axis of
+    both stages is padded to a mesh multiple and sharded, each rank running
+    its contiguous block and all-gathering the results.  The matching pads
+    with (0, 0) self-pairs whose counts are masked to 0; the pairs kept for
+    RANSAC are bucketed to a multiple of lcm(64, mesh size), the padding
+    slots masked empty so that they fail, as in the JAX package."""
     n = feats.desc.shape[0]
     # Features are prefix-packed, so the keypoint axis slices down to the
     # largest count (next power of two, at least 256)
@@ -92,8 +102,11 @@ def build_pairwise_graph(feats: Features, whs: torch.Tensor, cfg: Config,
         ii, jj = pair_indices(n)
 
     with total_timer("match_2nn"):
-        match = match_ring_pairs if ordered else match_all_pairs
-        res = match(feats.desc, feats.valid, cfg)
+        if mesh is None:
+            match = match_ring_pairs if ordered else match_all_pairs
+            res = match(feats.desc, feats.valid, cfg)
+        else:
+            res = _match_sharded(feats, ii, jj, cfg, ordered, mesh)
 
     # pairs below the RANSAC minimum never connect
     # (transform_estimate.cc:21,39); keys stay those of the ORIGINAL pair
@@ -108,11 +121,16 @@ def build_pairwise_graph(feats: Features, whs: torch.Tensor, cfg: Config,
     graph = PairwiseGraph(n, M)
     filled = {}
     if P:
-        kd = torch.as_tensor(keep, device=res.idx.device)
         with total_timer("ransac"):
-            infos = estimate_transform_batch(
-                MatchResult(*(f[kd] for f in res)), feats.pos, feats.valid,
-                whs, pair_ii, pair_jj, key, cfg, affine, keys=keys[kd])
+            if mesh is None:
+                kd = torch.as_tensor(keep, device=res.idx.device)
+                infos = estimate_transform_batch(
+                    MatchResult(*(f[kd] for f in res)), feats.pos,
+                    feats.valid, whs, pair_ii, pair_jj, key, cfg, affine,
+                    keys=keys[kd])
+            else:
+                infos = _ransac_sharded(res, keep, keys, feats, whs, ii, jj,
+                                        cfg, affine, mesh)
         homo = infos.homo.cpu().numpy()
         conf = infos.confidence.cpu().numpy()
         to_pos = infos.to_pos.cpu().numpy().astype(np.float64)
@@ -128,6 +146,57 @@ def build_pairwise_graph(feats: Features, whs: torch.Tensor, cfg: Config,
             if i != n - 1 and not filled.get((i, j), False):
                 raise RuntimeError(f"Image {i} and {j} don't match")
     return graph
+
+
+def _match_sharded(feats: Features, ii, jj, cfg: Config, ordered: bool,
+                   mesh) -> MatchResult:
+    """2-NN matching of this rank's block of the pair list padded with (0, 0)
+    self-pairs, in the single-device chunks; the blocks all-gathered, the
+    padding's counts masked to 0."""
+    from ..match.matcher import _chunk_for, _match_index_pairs
+    from ..parallel.mesh import all_gather, shard_on
+
+    P = len(ii)
+    blk = shard_on(mesh, P)
+    pi = [ii[p] if p < P else 0 for p in blk]
+    pj = [jj[p] if p < P else 0 for p in blk]
+    chunk = _chunk_for(feats.desc.shape[1]) if ordered else 32
+    res = _match_index_pairs(feats.desc, feats.valid, pi, pj, cfg, chunk)
+    res = MatchResult(*(all_gather(mesh, f, "match") for f in res))
+    return _emptied(res, torch.arange(res.count.shape[0]) < P)
+
+
+def _emptied(res: MatchResult, live: torch.Tensor) -> MatchResult:
+    """``res`` with the pairs where ``live`` is False emptied (no valid
+    match, count 0): padding that never connects."""
+    live = live.to(res.count.device)
+    return MatchResult(idx=res.idx, valid=res.valid & live[:, None],
+                       count=torch.where(live, res.count, 0))
+
+
+def _ransac_sharded(res: MatchResult, keep: np.ndarray, keys: torch.Tensor,
+                    feats: Features, whs: torch.Tensor, ii, jj, cfg: Config,
+                    affine: bool, mesh) -> MatchInfo:
+    """RANSAC over the kept pairs, bucketed to a multiple of lcm(64, mesh
+    size) (padding slots masked empty, so that they fail) and sharded like
+    the matching; each pair draws from its original slot's key, so the
+    draws do not move with the rank count.  Returns the kept pairs'
+    MatchInfo on every rank."""
+    from ..parallel.mesh import all_gather, shard_on
+
+    nd = mesh.size()
+    mult = 64 * nd // np.gcd(64, nd)
+    keep_p = np.concatenate([keep, np.zeros(-len(keep) % mult, np.int64)])
+    blk = shard_on(mesh, len(keep_p))
+    mine = keep_p[blk.start : blk.stop]
+    kd = torch.as_tensor(mine, device=res.idx.device)
+    sub = _emptied(MatchResult(*(f[kd] for f in res)),
+                   torch.as_tensor(np.arange(blk.start, blk.stop) < len(keep)))
+    infos = estimate_transform_batch(
+        sub, feats.pos, feats.valid, whs, [ii[k] for k in mine],
+        [jj[k] for k in mine], None, cfg, affine, keys=keys[kd])
+    return MatchInfo(*(all_gather(mesh, f, "ransac")[: len(keep)]
+                       for f in infos))
 
 
 def _build_linear_simple(graph: PairwiseGraph, n: int, mid: int,
@@ -167,13 +236,24 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def prologue(cfg: Config, output: str, key, device):
+def prologue(cfg: Config, output: str, key, device, mesh=None):
     """Validate the call; the device and the key (PRNGKey(0) by default) on
-    it."""
+    it.  With a mesh the device is the rank's, and a ``device`` that names
+    another raises."""
     cfg.validate()
     if output not in ("f32", "u8"):
         raise ValueError(f"output must be 'f32' or 'u8', not {output!r}")
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        from ..parallel.mesh import mesh_device
+
+        dev = mesh_device(mesh)
+        named = None if device is None else torch.device(device)
+        if named is not None and (named.type != dev.type or (
+                named.index is not None and named.index != dev.index)):
+            raise ValueError(f"device {named} conflicts with the mesh's "
+                             f"{dev}")
     return dev, prng.key((0, 0), dev) if key is None else key.to(dev)
 
 
@@ -202,8 +282,18 @@ def host_stream_groups(shape) -> int:
                                                      0.1))))
 
 
+def sharded_blend_on_host(shape) -> bool:
+    """Whether the sharded blend of a uint8 host stack reads it from host
+    memory, each rank uploading only its band's images: its paired stack
+    exceeds ``OPENPANO_HBM_BUDGET_GB``, or
+    ``OPENPANO_SHARDED_BLEND_HOST=1`` forces it."""
+    return (paired_gb(shape) > _budget_gb()
+            or os.environ.get("OPENPANO_SHARDED_BLEND_HOST", "") == "1")
+
+
 def stitch(imgs, cfg: Config, key=None, output: str = "f32", device=None,
-           info_out: dict | None = None, graph: PairwiseGraph | None = None):
+           info_out: dict | None = None, graph: PairwiseGraph | None = None,
+           mesh=None):
     """Stitcher::build (stitcher.cc:32-63).
 
     imgs: [n, H, W, 3] uint8 or float32 in [0, 1] (numpy or torch).
@@ -219,30 +309,42 @@ def stitch(imgs, cfg: Config, key=None, output: str = "f32", device=None,
     the feature and match stages are skipped (the reference's
     load_matchinfo fixture, debug.cc:127-140), and ``info_out`` gets no
     keypoint counts.  A uint8 host stack (numpy or a CPU tensor) past the
-    device budget stays in host memory (module docstring)."""
-    dev, key = prologue(cfg, output, key, device)
+    device budget stays in host memory (module docstring).
+
+    mesh: a ``parallel.make_mesh`` mesh of ``torch.distributed`` ranks.
+    Every rank calls with the same arguments and returns the whole result;
+    each stage shards over the ranks (``parallel/pipeline.py``), on the
+    rank's device (``device``, if given, must name it).  A uint8 host stack
+    past the budget, or any under ``OPENPANO_SHARDED_BLEND_HOST=1``, stays
+    in host memory: each rank uploads its feature images and then its
+    blend band's images only."""
+    dev, key = prologue(cfg, output, key, device, mesh)
     if not torch.is_tensor(imgs) or imgs.device.type == "cpu":
         imgs = np.asarray(imgs)                   # host memory, no copy
     n, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
     whs_np = np.repeat([[float(W), float(H)]], n, 0)
-    on_host = (graph is None and isinstance(imgs, np.ndarray)
-               and imgs.dtype == np.uint8 and stays_on_host(imgs.shape))
+    host_u8 = isinstance(imgs, np.ndarray) and imgs.dtype == np.uint8
+    if mesh is None:
+        on_host = graph is None and host_u8 and stays_on_host(imgs.shape)
+    else:
+        on_host = host_u8 and sharded_blend_on_host(imgs.shape)
     if not on_host:
         with total_timer("upload"):
             imgs = torch.as_tensor(imgs).to(dev)
     feats = None
     if graph is None:
         with total_timer("calc_feature"):
-            feats = compute_features(imgs, cfg, dev)
+            feats = (compute_features(imgs, cfg, dev) if mesh is None
+                     else compute_features_sharded(imgs, cfg, mesh))
         assert_finite("calc_feature", pos=feats.pos, desc=feats.desc)
     if on_host:
         imgs = HostImages(imgs, dev)
     return _stitch_core(imgs, feats, whs_np, cfg, key, output, info_out,
-                        graph)
+                        graph, mesh)
 
 
 def stitch_hetero(imgs_list, cfg: Config, key=None, output: str = "f32",
-                  device=None, info_out: dict | None = None):
+                  device=None, info_out: dict | None = None, mesh=None):
     """Stitch images of MIXED sizes (reference: per-image shapes throughout,
     stitch/imageref.hh:13-35 and stitcherbase.cc:9-27).
 
@@ -252,8 +354,9 @@ def stitch_hetero(imgs_list, cfg: Config, key=None, output: str = "f32",
     float32, as in the JAX package.  The blend stack pads each image to the
     largest shape with the INVALID sentinel, which sampling carries through
     (Color::NO).  imgs_list: [Hi, Wi, 3] uint8 or float32 arrays.  Returns
-    like :func:`stitch`."""
-    dev, key = prologue(cfg, output, key, device)
+    like :func:`stitch`; with ``mesh``, as the JAX package does, every
+    stage after the bucketed features shards over the ranks."""
+    dev, key = prologue(cfg, output, key, device, mesh)
     n = len(imgs_list)
     imgs_list = [np.asarray(im) for im in imgs_list]
     whs_np = np.asarray(
@@ -283,29 +386,34 @@ def stitch_hetero(imgs_list, cfg: Config, key=None, output: str = "f32",
         for i, im in enumerate(imgs_list):
             stack[i, : im.shape[0], : im.shape[1]] = to_f32(im)
         src = torch.from_numpy(stack).to(dev)
-    return _stitch_core(src, feats, whs_np, cfg, key, output, info_out)
+    return _stitch_core(src, feats, whs_np, cfg, key, output, info_out,
+                        mesh=mesh)
 
 
 def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
                  cfg: Config, key: torch.Tensor, output: str,
-                 info_out: dict | None, graph: PairwiseGraph | None = None):
+                 info_out: dict | None, graph: PairwiseGraph | None = None,
+                 mesh=None):
     """Shared tail of Stitcher::build after the features: match graph ->
     cameras (or homography chain) -> render plan -> blend
     (stitcher.cc:38-63).  imgs: [n, H, W, 3] blend stack on the card (or
     the CPU), uint8 or float32 in [0, 1] with INVALID beyond each image's
     ``whs`` extent, which becomes float32 in the blend stage; or
-    ``HostImages``, whose blend streams from host memory.  ``graph``, when
-    given, replaces the match stage (and ``feats`` is None)."""
+    ``HostImages``, whose blend streams from host memory (with a mesh:
+    each rank uploads its band's images).  ``graph``, when given, replaces
+    the match stage (and ``feats`` is None).  ``mesh`` shards matching,
+    RANSAC, the bundle adjustment and the blend over the ranks."""
     n = whs_np.shape[0]
     mid = n >> 1                                  # assign_center, :138-141
-    whs = torch.as_tensor(whs_np, dtype=torch.float32, device=imgs.device)
+    dev = imgs.device
+    whs = torch.as_tensor(whs_np, dtype=torch.float32, device=dev)
     if info_out is not None and feats is not None:
         info_out["kpt_counts"] = feats.valid.sum(1).cpu().numpy()
     if graph is None:
         with total_timer("pairwise_match"):
             graph = build_pairwise_graph(feats, whs, cfg, key,
                                          ordered=cfg.ORDERED_INPUT,
-                                         affine=cfg.TRANS)
+                                         affine=cfg.TRANS, mesh=mesh)
         assert_finite("pairwise_match", conf=graph.conf, homo=graph.homo,
                       to_pos=graph.to_pos, from_pos=graph.from_pos)
     if info_out is not None:
@@ -318,7 +426,8 @@ def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
         with total_timer("estimate_camera"):
             cams = estimate_cameras(
                 graph.conf, graph.homo, graph.to_pos, graph.from_pos,
-                graph.valid, whs_np, cfg, stats=info_out, device=imgs.device)
+                graph.valid, whs_np, cfg, stats=info_out, device=dev,
+                mesh=mesh)
         assert_finite("estimate_camera", focal=cams.focal, R=cams.R)
         homos = np.zeros((n, 3, 3))
         for i in range(n):                        # stitcher.cc:143-154
@@ -333,7 +442,10 @@ def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
 
     with total_timer("blend"):
         plan = plan_render(homos, whs_np, mid, proj, cfg.MAX_OUTPUT_SIZE)
-        if isinstance(imgs, HostImages):
+        if mesh is not None:
+            src = imgs.host if isinstance(imgs, HostImages) else imgs
+            result = to_output(blend_sharded(src, plan, cfg, mesh), output)
+        elif isinstance(imgs, HostImages):
             result = _blend_host_stream(imgs, plan, cfg, output)
         else:
             src = imgs.to(torch.float32)
@@ -345,6 +457,17 @@ def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
     if info_out is not None:
         info_out.update(homos=homos, plan=plan)
     return result
+
+
+def blend_sharded(imgs, plan, cfg: Config, mesh) -> torch.Tensor:
+    """The blend stage over the ranks' column bands: multiband when
+    ``cfg.MULTIBAND`` > 0, else linear.  ``imgs``: a host numpy stack (each
+    rank uploads its band's images) or a stack on the rank's device."""
+    if cfg.MULTIBAND > 0:
+        from .multiband import blend_multiband_sharded
+
+        return blend_multiband_sharded(imgs, plan, cfg.MULTIBAND, mesh)
+    return blend_linear_sharded(imgs, plan, cfg.ORDERED_INPUT, mesh)
 
 
 def _blend_host_stream(imgs: HostImages, plan, cfg: Config, output: str):

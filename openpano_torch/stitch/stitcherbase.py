@@ -72,8 +72,72 @@ def compute_features(imgs, cfg: Config, dev=None) -> Features:
         parts.append(detect_and_describe(
             work, orig.expand(batch.shape[0], 2), cfg))
     feats = Features(*(torch.cat(f, dim=0) for f in zip(*parts)))
+    _check_counts(feats)
+    return feats
+
+
+def _check_counts(feats: Features):
     counts = feats.valid.sum(1).tolist()
     for i, c in enumerate(counts):
         if c == 0:
             raise RuntimeError(f"Cannot find feature in image {i}!")
+
+
+def feature_shards(n: int, nd: int) -> np.ndarray:
+    """[nd, L] image indices per rank, -1 for padding: the images that the
+    JAX package's device g takes (``compute_features_sharded`` there).  The
+    batch is padded to a mesh multiple; a batch of at most
+    ``FEATURE_BATCH * nd`` splits evenly, a larger one runs in chunks of
+    that size, rank g taking rows [g * FEATURE_BATCH, (g + 1) *
+    FEATURE_BATCH) of each (the last chunk padded).  The JAX package fills
+    the padding with copies of an image and drops their features; here no
+    rank computes it."""
+    total = n + (-n % nd)
+    idx = np.concatenate([np.arange(n), np.full(total - n, -1)])
+    chunk = FEATURE_BATCH * nd
+    if total <= chunk:
+        return idx.reshape(nd, -1)
+    parts = []
+    for lo in range(0, total, chunk):
+        c = idx[lo : lo + chunk]
+        c = np.concatenate([c, np.full(chunk - len(c), -1)])
+        parts.append(c.reshape(nd, FEATURE_BATCH))
+    return np.concatenate(parts, 1)
+
+
+def compute_features_sharded(imgs, cfg: Config, mesh) -> Features:
+    """Data-parallel features over the ranks of ``mesh`` (the JAX package's
+    ``compute_features_sharded``): rank g runs :func:`compute_features` on
+    the images ``feature_shards`` gives it, uploading only those from a
+    host stack; the fixed-cap Features of every rank are all-gathered into
+    image order, so every rank returns all of them.  ``imgs`` as for
+    :func:`compute_features` (a host numpy stack, or a tensor on this
+    rank's device).  Raises "Cannot find feature" after the gather, on
+    every rank together."""
+    from ..parallel.mesh import all_gather, mesh_device
+
+    n = imgs.shape[0]
+    shards = feature_shards(n, mesh.size())
+    L = shards.shape[1]
+    own = shards[mesh.get_local_rank()]
+    ids = own[own >= 0]
+    dev = mesh_device(mesh)
+    K = cfg.MAX_KP_PER_IMAGE
+    local = Features(
+        pos=torch.zeros(L, K, 2, dtype=torch.float32, device=dev),
+        desc=torch.zeros(L, K, 128, dtype=torch.float32, device=dev),
+        valid=torch.zeros(L, K, dtype=torch.bool, device=dev))
+    if len(ids):
+        sub = imgs[ids] if isinstance(imgs, np.ndarray) else imgs[
+            torch.as_tensor(ids, device=imgs.device)]
+        mine = compute_features(sub, cfg, dev)
+        for a, b in zip(local, mine):
+            a[: len(ids)] = b
+    slot = np.empty(n, np.int64)                   # image -> gathered row
+    for g, row in enumerate(shards):
+        for k, i in enumerate(row[row >= 0]):
+            slot[i] = g * L + k
+    rows = torch.as_tensor(slot, device=dev)
+    feats = Features(*(all_gather(mesh, a, "features")[rows] for a in local))
+    _check_counts(feats)
     return feats

@@ -268,7 +268,6 @@ def test_stitch_host_stream_equals_in_memory(views_u8, in_memory, monkeypatch,
     real = trender.band_slice
     monkeypatch.setattr(trender, "band_slice",
                         lambda *a: calls.append(len(a[1])) or real(*a))
-    monkeypatch.setattr(tmb, "band_slice", trender.band_slice)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     host_info = {}
