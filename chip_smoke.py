@@ -79,7 +79,27 @@ Phases, each fatal on failure:
      agreeing with that path's on >= 99.95% and a u8 difference of at most
      1; (a)'s cameras within 1e-6 (focal) and 1e-8 (R) of the main path's,
      its bundle adjustment on the card; (d) one band upload and (a)'s
-     canvas bit for bit.
+     canvas bit for bit;
+  14. transport: (a) the headline through stitch_images with the default
+     Config, which takes the transport (grey and residual through the wire
+     codec, the chroma streamed in a background thread, the streamed u8
+     blend with coded strip downloads), (b) the same with
+     STREAM_BLEND=False and (c) with OPENPANO_CODED_DOWNLOAD=0, run in the
+     turns a b c c b a, counts read around each run alone: the main path's gates, K1 and K2 launched 10
+     times, the three canvases and valid masks equal bit for bit; the bytes
+     each way (coded against raw), the stage times and the host encode's
+     time printed; (d) the host-stream linear blend of (a)'s plan with its
+     coded band uploads and strips against coded_wire=False, bit for bit;
+     (e) CodedFetch of a canvas-strip plane and of a plane too noisy for the
+     cap against a plain .cpu(), bit for bit, with both downloads timed;
+     (f) the point-major bundle adjustment (pairs_to_points, ba_optimize)
+     of phase 5's rotating views on the card and on the CPU, from phase
+     5's cameras: within 1e-9 (focal, relative) and 1e-12 (R); from them
+     with the focals 5% long: within 1e-9 (focal) and 1e-10 (R), with the
+     CPU's own change of R when the points move by 1e-15 printed beside
+     it; two card runs bit for bit, the error lowered.
+Every phase before 14 that stitches a uint8 stack without a mesh runs the
+transport too (phase 10's without the chroma stream).
 The second-to-last line is the kernel report as JSON; the last line is the
 device record.
 """
@@ -102,10 +122,14 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from openpano_torch import Config, stitch_images  # noqa: E402
-from openpano_torch import _build, cli  # noqa: E402
+from openpano_torch import _build, cli, native  # noqa: E402
+from openpano_torch.camera import bundle_adjuster as tba  # noqa: E402
 from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
+from openpano_torch.camera.rotation import rodrigues, \
+    rotation_to_angle  # noqa: E402
 from openpano_torch.camera.estimator import estimate_cameras  # noqa: E402
 from openpano_torch.ops import windows  # noqa: E402
+from openpano_torch.io import wirecodec  # noqa: E402
 from openpano_torch.io.image import read_img_u8, write_rgb  # noqa: E402
 from openpano_torch.ops.imgproc import crop_with_mask  # noqa: E402
 from openpano_torch.parallel import init_distributed, make_mesh  # noqa: E402
@@ -502,7 +526,8 @@ def canvas_ncc(a, va, b, vb) -> float:
 def reference_phase():
     """The TRANS strip, the default-Config rotating views and a CYLINDER +
     multiband sweep on the card and on the CPU; the bundle adjustment on
-    the card and on the host."""
+    the card and on the host.  Returns the rotating views' card run info
+    and their host cameras."""
     views = np.round(strip_views(4, 320, 240, overlap=0.5, seed=0) * 255
                      ).astype(np.uint8)
     gi = compare_card_cpu("TRANS strip", views, Config(**TRANS, **SMALL))
@@ -513,7 +538,8 @@ def reference_phase():
                           out_w=320, out_h=240, hfov_deg=32, overlap=0.5)
     rot = np.round(rot[[2, 0, 4, 1, 3]] * 255).astype(np.uint8)
     cfg = Config(**SMALL)
-    g = compare_card_cpu("default Config", rot, cfg)["graph"]
+    ref = compare_card_cpu("default Config", rot, cfg)
+    g = ref["graph"]
     whs = np.repeat([[320.0, 240.0]], 5, 0)
     args = (g.conf, g.homo, g.to_pos, g.from_pos, g.valid, whs)
     runs = []
@@ -542,6 +568,7 @@ def reference_phase():
     cyl = np.round(cyl * 255).astype(np.uint8)
     compare_card_cpu("CYLINDER + MULTIBAND=2", cyl,
                      Config(**CYLINDER, MULTIBAND=2, **SMALL))
+    return ref, h
 
 
 def brief_phase(u8: np.ndarray, perm: np.ndarray):
@@ -910,9 +937,9 @@ def host_stream_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
     bands = []
     real = render.band_slice
 
-    def recorder(imgs, ids, dev):
+    def recorder(imgs, ids, *a):
         bands.append(len(ids))
-        return real(imgs, ids, dev)
+        return real(imgs, ids, *a)
 
     os.environ["OPENPANO_HBM_BUDGET_GB"] = HOST_BUDGET_GB
     render.band_slice = recorder
@@ -1072,9 +1099,9 @@ def mesh_runs(mesh, u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
     bands = []
     real = render.band_slice
 
-    def recorder(imgs, ids, dev):
+    def recorder(imgs, ids, *a):
         bands.append(len(ids))
-        return real(imgs, ids, dev)
+        return real(imgs, ids, *a)
 
     runs = {
         "a": main_path(u8, truth, perm, mesh=mesh, label="mesh (a) linear"),
@@ -1149,6 +1176,201 @@ def mesh_phase(u8: np.ndarray, truth: dict, perm: np.ndarray,
     return mesh_check(runs, one)
 
 
+def transport_run(label: str, u8: np.ndarray, truth: dict, perm: np.ndarray,
+                  cfg_over: dict, env: dict):
+    """The main path with ``cfg_over`` and ``env`` (restored after), the
+    codec's counters read around this run alone."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    wirecodec.reset_stats()
+    try:
+        cfg = Config(**HEADLINE, **cfg_over)
+        canvas, valid, info, launches = drive(
+            label, u8, cfg, prng.key((0, 1), "cuda"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    stats = dict(wirecodec.STATS)
+    print(f"{label}: host -> card {stats['up_bytes']:.0f} B for "
+          f"{stats['up_plain_bytes']:.0f} B of planes; card -> host "
+          f"{stats['down_bytes']:.0f} B for {stats['down_plain_bytes']:.0f} "
+          f"B of planes; host encode {stats['encode_s']:.4f} s (grey split, "
+          f"chroma and packing, both threads), host decode "
+          f"{stats['decode_s']:.4f} s")
+    inv_perm = np.argsort(perm)
+    conf = info["graph"].conf
+    check(all(conf[inv_perm[k], inv_perm[k + 1]] > 0
+              for k in range(N_VIEWS - 1)),
+          f"{label}: a pair adjacent in the sweep did not connect")
+    reproj = camera_error(info["homos"], truth, perm)
+    want_w, want_h = expected_canvas(truth, cfg)
+    print(f"{label}: canvas {canvas.shape[1]}x{canvas.shape[0]}, valid "
+          f"fraction {valid.mean():.4f}, reprojection {reproj:.4f} px")
+    check(abs(canvas.shape[1] - want_w) <= 0.05 * want_w
+          and abs(canvas.shape[0] - want_h) <= 0.05 * want_h,
+          f"{label}: canvas size off")
+    check(valid.mean() > 0.3 and reproj < REPROJ_LIMIT_PX,
+          f"{label}: the main path's gates")
+    for name, _, _, _, _ in KERNELS[:2]:
+        check(launches[name] == -(-N_VIEWS // FEATURE_BATCH),
+              f"{label}: {name} launched {launches[name]} times")
+    return canvas, valid, info, launches, stats
+
+
+def ba_points_run(graph, cams, dev: str, focal_scale: float = 1.0,
+                  eps: float = 0.0):
+    """pairs_to_points over every connected pair (i < j) of ``graph`` (its
+    points scaled by 1 + ``eps``) and ba_optimize from ``cams`` with its
+    focals times ``focal_scale``, on ``dev``.  Returns ([n, 6] params,
+    seconds, [RMS px before, after])."""
+    n = graph.conf.shape[0]
+    ii, jj = np.nonzero(np.triu(graph.conf > 0, 1))
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    prob = tba.pairs_to_points(
+        ii, jj, t(graph.from_pos[ii, jj] * (1.0 + eps)),
+        t(graph.to_pos[ii, jj]), t(graph.valid[ii, jj]),
+        t(np.ones(len(ii))))
+    params = np.zeros((n, 6))
+    params[:, 0] = cams.focal * focal_scale
+    params[:, 1], params[:, 2] = cams.ppx, cams.ppy
+    params[:, 3:6] = rotation_to_angle(torch.from_numpy(cams.R)).numpy()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tba.ba_optimize(t(params), prob, n >> 1, n,
+                          Config().LM_LAMBDA).cpu().numpy()
+    secs = time.perf_counter() - t0
+    rms = [float(tba._rms_points(tba._residuals(t(p), prob), prob))
+           for p in (params, out)]
+    return out, secs, rms
+
+
+def transport_phase(u8: np.ndarray, truth: dict, perm: np.ndarray,
+                    ref: tuple) -> dict:
+    """Phase 14 (module docstring).  Returns (a)'s launches."""
+    # the headline's share of row deltas past each upload codec's range
+    grey, _ = native.wire_grey_res_u8(u8)
+    rows = grey.reshape(-1, VIEW_W)
+    chroma = np.concatenate([(u8[..., c].reshape(-1, VIEW_W).astype(np.int16)
+                              - rows) & 0xFF for c in (0, 2)]).astype(
+                                  np.uint8)
+    rate = lambda p, bits: (native.wire_pack_plain(p, bits, 1.0)[1].size
+                            / p.size)
+    print(f"transport: the headline's exceptions, grey (4-bit) "
+          f"{rate(rows, 4):.4f}, chroma (2-bit) {rate(chroma, 2):.4f}, "
+          f"against the codec's budget of 0.12")
+    del grey, rows, chroma
+    variants = {
+        "a": ("transport (a)", {}, {}),
+        "b": ("transport (b) STREAM_BLEND=False", {"STREAM_BLEND": False},
+              {}),
+        "c": ("transport (c) OPENPANO_CODED_DOWNLOAD=0", {},
+              {"OPENPANO_CODED_DOWNLOAD": "0"})}
+    runs = {}
+    # in turns, so that the host's drift shows: a b c c b a
+    for k in ("a", "b", "c", "c2", "b2", "a2"):
+        label, cfg_over, env = variants[k[0]]
+        runs[k] = transport_run(label + ("" if len(k) == 1 else ", again"),
+                                u8, truth, perm, cfg_over, env)
+    canvas, valid, info = runs["a"][:3]
+    for k in ("b", "c", "c2", "b2", "a2"):
+        same = (np.array_equal(runs[k][0], canvas)
+                and np.array_equal(runs[k][1], valid))
+        print(f"transport ({k}) canvas and valid mask equal (a)'s bit for "
+              f"bit: {same}; wall {runs[k][2]['wall_s']:.3f} s, blend stage "
+              f"{runs[k][2]['stages_s']['blend']} s against (a)'s "
+              f"{info['wall_s']:.3f} s, {info['stages_s']['blend']} s")
+        check(same, f"transport ({k}): the canvas differs from (a)'s")
+
+    # (d) the host stream's coded band uploads and strips
+    out = {}
+    for coded in (True, False):
+        wirecodec.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[coded] = blend_linear_host_stream(u8, info["plan"], False,
+                                              HOST_GROUPS, u8_out=True,
+                                              coded_wire=coded)
+        print(f"transport (d) host stream, {HOST_GROUPS} bands, coded_wire="
+              f"{coded}: {time.perf_counter() - t0:.3f} s, host -> card "
+              f"{wirecodec.STATS['up_bytes']:.0f} B, card -> host "
+              f"{wirecodec.STATS['down_bytes']:.0f} B")
+    same = np.array_equal(out[True], out[False])
+    print(f"transport (d): coded band uploads equal the plain ones' canvas "
+          f"bit for bit: {same}")
+    check(same, "transport (d): coded and plain host streams differ")
+    del out
+
+    # (e) CodedFetch against a plain .cpu()
+    rgb = torch.from_numpy(canvas).cuda().to(torch.int32)
+    g = rgb[..., 1]
+    planes = torch.cat([g, (rgb[..., 0] - g) & 0xFF, (rgb[..., 2] - g) & 0xFF,
+                        torch.from_numpy(valid).cuda().to(torch.int32)]
+                       ).to(torch.uint8).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    noisy = torch.randint(0, 256, (2048, 3072), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    # rows of small steps, as photographs give: the coded branch
+    steps = torch.randint(-3, 4, (2048, 3072), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    smooth = (torch.cumsum(steps, 1, dtype=torch.int32) & 0xFF).to(
+        torch.uint8)
+    for name, plane in (("canvas planes", planes), ("smooth rows", smooth),
+                        ("noise", noisy)):
+        n_exc = int(wirecodec.encode_plane_device(
+            plane, cap=plane.numel())[0][-1])
+        want = plane.cpu().numpy()
+        times = {}
+        for label, fn in (("coded", lambda: wirecodec.CodedFetch(plane).wait()),
+                          ("plain", lambda: plane.cpu().numpy())):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            times[label] = time.perf_counter() - t0
+            check(np.array_equal(got, want),
+                  f"transport (e): {label} fetch of {name} differs")
+        branch = "coded" if n_exc <= max(4096, plane.numel() // 12) \
+            else "raw (past the cap)"
+        print(f"transport (e) {name} {tuple(plane.shape)}: {n_exc} "
+              f"exceptions ({n_exc / plane.numel():.4f}), the {branch} "
+              f"branch; CodedFetch {times['coded'] * 1e3:.3f} ms, .cpu() "
+              f"{times['plain'] * 1e3:.3f} ms, equal bit for bit")
+
+    # (f) the point-major bundle adjustment, card against CPU: from phase
+    # 5's cameras, held to 1e-9 (focal) and 1e-12 (R); from the same
+    # cameras with every focal 5% long, where the LM moves R by about 2e-11
+    # when the points move by one part in 1e15, held to 1e-9 and 1e-10
+    ref_info, host_cams = ref
+    graph = ref_info["graph"]
+    for scale in (1.0, 1.05):
+        (c1, t1, rms), (c2, _, _), (cpu, tc, _), (ulp, _, _) = (
+            ba_points_run(graph, host_cams, d, scale, e)
+            for d, e in (("cuda", 0.0), ("cuda", 0.0), ("cpu", 0.0),
+                         ("cpu", 1e-15)))
+        rot = lambda p: rodrigues(torch.from_numpy(p[:, 3:6])).numpy()
+        frel = float(np.abs(c1[:, 0] / cpu[:, 0] - 1).max())
+        rabs = float(np.abs(rot(c1) - rot(cpu)).max())
+        sens = float(np.abs(rot(ulp) - rot(cpu)).max())
+        r_gate = 1e-12 if scale == 1.0 else 1e-10
+        print(f"transport (f) point-major BA, {graph.conf.shape[0]} cameras, "
+              f"focals x{scale}: card {t1:.3f} s, CPU {tc:.3f} s; focal max "
+              f"rel diff {frel:.3e}, R max abs diff {rabs:.3e} (gate "
+              f"{r_gate:.3e}; the CPU's R moves {sens:.3e} when the points "
+              f"move by 1e-15); RMS {rms[0]:.4f} -> {rms[1]:.4f} px, focal "
+              f"{np.round(c1[:, 0], 3).tolist()}")
+        check(frel < 1e-9 and rabs < r_gate,
+              f"transport (f): card and CPU point-major BA differ (x{scale})")
+        check(np.array_equal(c1, c2), "transport (f): two card runs of the "
+              f"point-major BA differ (x{scale})")
+        check(rms[1] < rms[0],
+              f"transport (f): the BA did not lower the error (x{scale})")
+    return runs["a"][3]
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this script measures the card", file=sys.stderr)
@@ -1191,7 +1413,7 @@ def main(kernels_only: bool = False) -> int:
         print(json.dumps({"kernels": report}))
         return 0
     t0 = time.perf_counter()
-    reference_phase()
+    ref = reference_phase()
     brief_phase(u8, perm)
     print(f"references and BRIEF: {time.perf_counter() - t0:.1f} s")
     trans_launches = trans_path(strip, xy)
@@ -1209,6 +1431,9 @@ def main(kernels_only: bool = False) -> int:
         "main": linear, "multiband": multiband, "CYLINDER": cylinder})
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     del linear, multiband, cylinder
+    t0 = time.perf_counter()
+    transport_launches = transport_phase(u8, truth, perm, ref)
+    print(f"transport phase: {time.perf_counter() - t0:.1f} s")
     for entry in report:
         k = entry["name"]
         entry.update(launches=launches[k], trans_launches=trans_launches[k],
@@ -1216,7 +1441,8 @@ def main(kernels_only: bool = False) -> int:
                      cylinder_launches=cyl_launches[k],
                      cli_launches=cli_launches[k],
                      host_stream_launches=host_launches[k],
-                     mesh_launches=mesh_launches[k])
+                     mesh_launches=mesh_launches[k],
+                     transport_launches=transport_launches[k])
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": report}))

@@ -6,9 +6,14 @@ Two kinds of library, both with a plain C interface loaded through ctypes:
   (``sm_90a``).  There is no fallback: a caller that needs a kernel on the
   card gets it or an error.
 - Host code at the repository root, compiled by the host C compiler: the
-  crop DP (``native/crop_largest_rect.c``) and the PNG codec
-  (``native/png_codec.c``, linked with zlib).
+  crop DP (``native/crop_largest_rect.c``), the PNG codec
+  (``native/png_codec.c``, linked with zlib), and the threaded transport
+  codecs (``native/wire_codec.c``, the 4-bit / 2-bit wire codec, and
+  ``native/delta_code.c``, row deltas; both linked with pthreads).  A host
+  library that does not build raises: nothing falls back to Python.
 
+Loading is serialised by a lock: the transport's background upload thread
+may load the wire codec while the main thread loads another library.
 Libraries land in ``openpano_torch/_build/`` (git-ignored), named by a hash
 of their source and flags, so an edited source is rebuilt and a stale one is
 never loaded.  A build writes a temporary file and renames it into place;
@@ -24,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -32,12 +38,15 @@ CSRC = _PKG / "csrc"
 NATIVE = _PKG.parent / "native"
 CROP_SRC = NATIVE / "crop_largest_rect.c"
 PNG_SRC = NATIVE / "png_codec.c"
+WIRE_SRC = NATIVE / "wire_codec.c"
+DELTA_SRC = NATIVE / "delta_code.c"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 CC_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()
 
 
 def _target(src: Path, flags: tuple[str, ...]) -> Path:
@@ -86,9 +95,10 @@ def build_cuda(name: str) -> Path:
 
 def cuda_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``csrc/<name>.cu``, built if needed."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build_cuda(name)))
-    return _loaded[name]
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(build_cuda(name)))
+        return _loaded[name]
 
 
 def _host_library(src: Path, libs: tuple[str, ...] = ()) -> ctypes.CDLL:
@@ -106,29 +116,76 @@ def _host_library(src: Path, libs: tuple[str, ...] = ()) -> ctypes.CDLL:
 
 def crop_library() -> ctypes.CDLL:
     """``native/crop_largest_rect.c``, built with the host C compiler."""
-    if "crop" not in _loaded:
-        lib = _host_library(CROP_SRC)
-        lib.largest_valid_rect.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-        lib.largest_valid_rect.restype = None
-        _loaded["crop"] = lib
-    return _loaded["crop"]
+    with _lock:
+        if "crop" not in _loaded:
+            lib = _host_library(CROP_SRC)
+            lib.largest_valid_rect.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p]
+            lib.largest_valid_rect.restype = None
+            _loaded["crop"] = lib
+        return _loaded["crop"]
 
 
 def png_library() -> ctypes.CDLL:
     """``native/png_codec.c`` (zlib-backed PNG decode and encode), built
     with the host C compiler."""
-    if "png" not in _loaded:
-        lib = _host_library(PNG_SRC, ("-lz",))
-        lib.png_decode_rgb8.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64)]
-        lib.png_decode_rgb8.restype = ctypes.c_void_p
-        lib.png_encode_rgb8.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64)]
-        lib.png_encode_rgb8.restype = ctypes.c_void_p
-        lib.pano_free.argtypes = [ctypes.c_void_p]
-        lib.pano_free.restype = None
-        _loaded["png"] = lib
-    return _loaded["png"]
+    with _lock:
+        if "png" not in _loaded:
+            lib = _host_library(PNG_SRC, ("-lz",))
+            lib.png_decode_rgb8.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64)]
+            lib.png_decode_rgb8.restype = ctypes.c_void_p
+            lib.png_encode_rgb8.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64)]
+            lib.png_encode_rgb8.restype = ctypes.c_void_p
+            lib.pano_free.argtypes = [ctypes.c_void_p]
+            lib.pano_free.restype = None
+            _loaded["png"] = lib
+        return _loaded["png"]
+
+
+def wire_library() -> ctypes.CDLL:
+    """``native/wire_codec.c`` (the threaded 4-bit / 2-bit wire codec, the
+    grey + residual split and the download decoder), built with the host C
+    compiler."""
+    with _lock:
+        if "wire" not in _loaded:
+            lib = _host_library(WIRE_SRC, ("-lpthread",))
+            pack = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int64, ctypes.c_int]
+            for fn in (lib.wire_pack4, lib.wire_pack2):
+                fn.argtypes = pack
+                fn.restype = ctypes.c_int64
+            lib.wire_grey_u8.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_int64, ctypes.c_int]
+            lib.wire_grey_u8.restype = None
+            lib.wire_grey_res_u8.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int]
+            lib.wire_grey_res_u8.restype = None
+            lib.wire_unpack.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+            lib.wire_unpack.restype = None
+            _loaded["wire"] = lib
+        return _loaded["wire"]
+
+
+def delta_library() -> ctypes.CDLL:
+    """``native/delta_code.c`` (threaded row deltas mod 256 and their
+    prefix sums), built with the host C compiler."""
+    with _lock:
+        if "delta" not in _loaded:
+            lib = _host_library(DELTA_SRC, ("-lpthread",))
+            for fn in (lib.delta_encode_rows, lib.delta_decode_rows):
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+                fn.restype = None
+            _loaded["delta"] = lib
+        return _loaded["delta"]

@@ -1,8 +1,11 @@
-"""Levenberg-Marquardt bundle adjustment over camera parameters, pair-major.
+"""Levenberg-Marquardt bundle adjustment over camera parameters.
 
-Reference: stitch/incremental_bundle_adjuster.{hh,cc}; counterpart of the
-pair-major path of ``openpano_tpu/camera/bundle_adjuster.py`` (the one the
-camera estimator runs).  Six parameters per camera (focal, ppx, ppy, three
+Reference: stitch/incremental_bundle_adjuster.{hh,cc}; counterpart of
+``openpano_tpu/camera/bundle_adjuster.py``: the pair-major problem the
+camera estimator runs (``ba_optimize_pairs``), and the point-major one with
+pair-contiguous segments (``BAProblem``, ``ba_optimize``,
+``pairs_to_points``), whose per-pair normal-equation blocks are
+cumulative-sum differences over each pair's rows.  Six parameters per camera (focal, ppx, ppy, three
 Rodrigues); the residual of every match point is its pixel reprojection
 error through H = K_f R_f R_t^T K_t^-1 (calcError, .cc:171-197).
 
@@ -347,3 +350,231 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
             lam = min(max(lam / 3.0 if improved else lam * 4.0, 1e-4), 1e8)
         itr += 1
     return best_flat.reshape(n_cam, 6), itr
+
+
+# ---- the point-major problem (pair-contiguous segments) ----
+
+
+class BAProblem(NamedTuple):
+    """Point-major BA inputs with pair-contiguous segments.
+
+    Per point (row t): pt_to / pt_from [T, 2] half-shifted coords in the
+    stored orientation; pair_id [T] its pair slot; w [T] its static weight
+    (0 = padding).  Per pair slot (s): starts / ends [P] its row range;
+    cam_to / cam_from [P] the camera indices in the stored orientation;
+    swapped [P] bool, True flips the pair's direction; pair_w [P] its
+    activation weight (0 = not yet in the schedule)."""
+
+    pt_to: torch.Tensor
+    pt_from: torch.Tensor
+    pair_id: torch.Tensor
+    w: torch.Tensor
+    starts: torch.Tensor
+    ends: torch.Tensor
+    cam_to: torch.Tensor
+    cam_from: torch.Tensor
+    swapped: torch.Tensor
+    pair_w: torch.Tensor
+
+
+class _EffProblem(NamedTuple):
+    """The problem with each pair's swap resolved into per-point data."""
+
+    pt_to: torch.Tensor     # [T, 2]
+    pt_from: torch.Tensor   # [T, 2]
+    pair_id: torch.Tensor   # [T]
+    cam_to: torch.Tensor    # [T]
+    cam_from: torch.Tensor  # [T]
+    w: torch.Tensor         # [T] combined weight
+    starts: torch.Tensor
+    ends: torch.Tensor
+    rows_to: torch.Tensor   # [P] effective per-pair cameras, for JtJ rows
+    rows_from: torch.Tensor
+
+
+def _effective(prob: BAProblem) -> _EffProblem:
+    sw = prob.swapped[prob.pair_id]
+    eff_cam_to = torch.where(prob.swapped, prob.cam_from, prob.cam_to)
+    eff_cam_from = torch.where(prob.swapped, prob.cam_to, prob.cam_from)
+    return _EffProblem(
+        pt_to=torch.where(sw[:, None], prob.pt_from, prob.pt_to),
+        pt_from=torch.where(sw[:, None], prob.pt_to, prob.pt_from),
+        pair_id=prob.pair_id,
+        cam_to=eff_cam_to[prob.pair_id],
+        cam_from=eff_cam_from[prob.pair_id],
+        w=prob.w * prob.pair_w[prob.pair_id],
+        starts=prob.starts,
+        ends=prob.ends,
+        rows_to=eff_cam_to,
+        rows_from=eff_cam_from,
+    )
+
+
+def _K(f, ppx, ppy) -> torch.Tensor:
+    z, o = torch.zeros_like(f), torch.ones_like(f)
+    return torch.stack([torch.stack([f, z, ppx]), torch.stack([z, f, ppy]),
+                        torch.stack([z, z, o])])
+
+
+def _K_inv(f, ppx, ppy) -> torch.Tensor:
+    z, o = torch.zeros_like(f), torch.ones_like(f)
+    fi = 1.0 / f
+    return torch.stack([torch.stack([fi, z, -ppx * fi]),
+                        torch.stack([z, fi, -ppy * fi]),
+                        torch.stack([z, z, o])])
+
+
+def _point_residual(cam12: torch.Tensor, pt_to: torch.Tensor,
+                    pt_from: torch.Tensor) -> torch.Tensor:
+    """Residual [2] of one point from its two cameras' 12 parameters
+    (from, then to; calcError, .cc:171-197): r = from - H(to), H = K_f R_f
+    R_t^T K_t^-1."""
+    cf, ct = cam12[:6], cam12[6:]
+    Hf = _K(cf[0], cf[1], cf[2]) @ rodrigues(cf[3:6])
+    Ht = rodrigues(ct[3:6]).T @ _K_inv(ct[0], ct[1], ct[2])
+    xyz = torch.cat([pt_to, torch.ones_like(pt_to[..., :1])], -1)
+    proj = (Hf @ Ht) @ xyz
+    z = proj[2]
+    zsafe = torch.where(torch.abs(z) > 1e-20, z, 1e-20)
+    return pt_from - proj[:2] / zsafe
+
+
+def _eff_residuals(params: torch.Tensor, eff: _EffProblem) -> torch.Tensor:
+    """Weighted residuals [T, 2]."""
+    H = _rows_H(params, eff.rows_from, eff.rows_to)
+    _, u, zs, _ = _project(H[eff.pair_id], eff.pt_to[:, None])
+    r = eff.pt_from - u[:, 0, :2] / zs[:, 0, None]
+    return r * eff.w[:, None]
+
+
+def _residuals(params: torch.Tensor, prob: BAProblem) -> torch.Tensor:
+    return _eff_residuals(params, _effective(prob))
+
+
+def _rms_w(r: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sqrt(mean of squared residuals) over the active points, two per
+    point (.cc:199-220)."""
+    npts = (w > 0).sum().to(r.dtype) * 2.0
+    return torch.sqrt((r * r).sum() / torch.clamp(npts, min=1.0))
+
+
+def _rms_points(r: torch.Tensor, prob: BAProblem) -> torch.Tensor:
+    """``_rms_w`` over a point-major problem's active points (the JAX
+    package's ``_rms(r, prob)``)."""
+    return _rms_w(r, prob.w * prob.pair_w[prob.pair_id])
+
+
+def _segment_blocks(x: torch.Tensor, starts: torch.Tensor,
+                    ends: torch.Tensor) -> torch.Tensor:
+    """Sums of the rows of x [T, ...] over the contiguous segments [starts,
+    ends): a cumulative sum (in x's dtype, f64 here) and two gathers of P
+    rows, no scatter over T."""
+    flat = x.reshape(x.shape[0], -1)
+    cs = torch.cat([torch.zeros_like(flat[:1]), torch.cumsum(flat, 0)], 0)
+    return (cs[ends.long()] - cs[starts.long()]).reshape(
+        (starts.shape[0],) + x.shape[1:])
+
+
+def _eff_jacobian(params: torch.Tensor, eff: _EffProblem) -> torch.Tensor:
+    """Analytic per-point Jacobian [T, 2, 12] (from camera, then to): the
+    chain rule through the projective division of the per-pair dH blocks
+    (``_rows_H_dH``; calcJacobianSymbolic, .cc:306-353)."""
+    H, dH = _rows_H_dH(params, eff.rows_from, eff.rows_to)
+    pid = eff.pair_id
+    ph, u, zs, zok = _project(H[pid], eff.pt_to[:, None])
+    ph, u, zs, zok = ph[:, 0], u[:, 0], zs[:, 0], zok[:, 0]
+    du = torch.einsum("tkij,tj->tki", dH[pid], ph)       # [T, 12, 3]
+    zi = 1.0 / zs
+    # the zsafe clamp freezes z where |z| <= 1e-20
+    zterm = torch.where(zok, zi * zi, 0.0)
+    Jx = -(du[..., 0] * zi[:, None]
+           - du[..., 2] * (u[..., 0] * zterm)[:, None])
+    Jy = -(du[..., 1] * zi[:, None]
+           - du[..., 2] * (u[..., 1] * zterm)[:, None])
+    return torch.stack([Jx, Jy], dim=1)
+
+
+def _eff_normal_equations(params: torch.Tensor, residuals: torch.Tensor,
+                          eff: _EffProblem, n_cam: int):
+    """JtJ [6n, 6n] and Jtb [6n]: per-point blocks summed over each pair's
+    segment (``_segment_blocks``), then the P pair blocks added at their
+    cameras' rows."""
+    Jp = _eff_jacobian(params, eff) * eff.w[:, None, None]
+    B = torch.einsum("tki,tkj->tij", Jp, Jp)             # [T, 12, 12]
+    b = torch.einsum("tki,tk->ti", Jp, residuals)        # [T, 12]
+    Bp = _segment_blocks(B, eff.starts, eff.ends)
+    bp = _segment_blocks(b, eff.starts, eff.ends)
+    offs = torch.arange(6, device=params.device)
+    rows = torch.cat([eff.rows_from[:, None] * 6 + offs,
+                      eff.rows_to[:, None] * 6 + offs], 1).long()
+    return assemble_scatter(Bp, bp, rows, n_cam * 6)
+
+
+def _normal_equations(params, residuals, prob: BAProblem, n_cam: int):
+    return _eff_normal_equations(params, residuals, _effective(prob), n_cam)
+
+
+def ba_optimize(params: torch.Tensor, prob: BAProblem, identity_idx: int,
+                n_cam: int, lm_lambda: float) -> torch.Tensor:
+    """The LM loop (optimize(), .cc:117-168) over a point-major problem, on
+    the device of ``params`` and ``prob``.  params: [n, 6] float64 rows
+    (focal, ppx, ppy, rx, ry, rz); returns the optimized [n, 6].
+
+    The JAX package's semantics: fixed split damping (lambda on rotations,
+    lambda / 10 on intrinsics, .cc:240-248); the identity camera's rotation
+    frozen by masking the solved step (.cc:144-148); a step accepted when
+    the RMS drops by more than 1e-3; at most 100 steps, ending after more
+    than 5 rejections in a row; J^T r from the residual of the most
+    recently evaluated state even after a rejected step (.cc:117-160).  A
+    host loop with one read-back of the cost per iteration."""
+    if not lm_lambda > 0:
+        raise ValueError("LM damping must be positive (SPD precondition)")
+    dt, dev = params.dtype, params.device
+    eff = _effective(prob)
+    upd = torch.ones(n_cam, 6, dtype=dt, device=dev)
+    upd[int(identity_idx), 3:] = 0.0
+    upd = upd.reshape(-1)
+    damp = torch.where(torch.arange(n_cam * 6, device=dev) % 6 >= 3,
+                       lm_lambda, lm_lambda / 10.0).to(dt)
+    best_flat = params.reshape(-1)
+    resid = _eff_residuals(params, eff)
+    best_err = float(_rms_w(resid, eff.w))
+    nr_nd, itr = 0, 0
+    while itr < LM_MAX_ITER and nr_nd <= NR_NON_DECREASE:
+        JtJ, Jtb = _eff_normal_equations(best_flat.reshape(n_cam, 6), resid,
+                                         eff, n_cam)
+        delta = solve_sym_scaled_chol(JtJ + torch.diag(damp), Jtb)
+        new_flat = best_flat - delta * upd
+        resid = _eff_residuals(new_flat.reshape(n_cam, 6), eff)
+        new_err = float(_rms_w(resid, eff.w))
+        if new_err < best_err - 1e-3:
+            best_flat, best_err, nr_nd = new_flat, new_err, 0
+        else:
+            nr_nd += 1
+        itr += 1
+    return best_flat.reshape(n_cam, 6)
+
+
+def pairs_to_points(from_idx, to_idx, pts_to, pts_from, valid,
+                    pair_active) -> BAProblem:
+    """A pair-major [P, M] problem in the segment layout: each pair's M rows
+    are its segment and the weights select (no compaction).  Tensors land
+    on the device of ``pts_to``."""
+    pts_to = torch.as_tensor(pts_to)
+    dev, dt = pts_to.device, pts_to.dtype
+    valid = torch.as_tensor(valid, device=dev)
+    P, M = valid.shape
+    ar = torch.arange(P, dtype=torch.int32, device=dev)
+    i32 = lambda a: torch.as_tensor(a, device=dev).to(torch.int32)
+    return BAProblem(
+        pt_to=pts_to.reshape(P * M, 2),
+        pt_from=torch.as_tensor(pts_from, device=dev).reshape(P * M, 2),
+        pair_id=torch.repeat_interleave(ar, M),
+        w=valid.reshape(-1).to(dt),
+        starts=ar * M,
+        ends=(ar + 1) * M,
+        cam_to=i32(to_idx),
+        cam_from=i32(from_idx),
+        swapped=torch.zeros(P, dtype=torch.bool, device=dev),
+        pair_w=torch.as_tensor(pair_active, device=dev).to(dt),
+    )

@@ -8,9 +8,10 @@ means the same thing here (see :mod:`openpano_torch.compat`).  The same
 whitespace key-value file format is accepted by :func:`Config.from_file`
 (reference: lib/config.cc:13-35).
 
-``STREAM_BLEND`` steers the JAX package's streamed transfer, which this
-package has not ported; it is carried unchanged and the canvas is the same
-either way.
+``STREAM_BLEND`` (on by default) sends a u8-output linear blend through
+``render.blend_linear_stream_u8``, which downloads each finished column
+strip while later strips compute, as in the JAX package; the canvas is the
+same either way.
 """
 
 from __future__ import annotations

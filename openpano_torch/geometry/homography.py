@@ -62,6 +62,14 @@ def homo_inverse(H: torch.Tensor):
     return torch.where(ok[..., None, None], inv, eye), ok
 
 
+def translation(dx, dy, dtype=torch.float32) -> torch.Tensor:
+    """(reference: Homography::get_translation, homography.hh:133-138)."""
+    H = torch.eye(3, dtype=dtype)
+    H[0, 2] = dx
+    H[1, 2] = dy
+    return H
+
+
 def health(H: torch.Tensor) -> torch.Tensor:
     """Small perspective terms and no flip (reference: Homography::health,
     homography.hh:106-127), on raw homogeneous components."""

@@ -159,3 +159,14 @@ def estimate_transform_batch(matches: MatchResult, pos, valid, whs, ii, jj,
             MatchResult(*(f[sl] for f in matches)), pos[i], valid[i], pos[j],
             valid[j], whs[i], whs[j], keys[sl], cfg, affine))
     return MatchInfo(*(torch.cat(f, dim=0) for f in zip(*parts)))
+
+
+def reverse_matchinfo(info: MatchInfo) -> MatchInfo:
+    """MatchInfo of the (j, i) direction from that of (i, j): the inverse
+    homography and the coordinate pairs swapped (reference: Stitcher::
+    match_image fills both triangle entries, stitcher.cc:88-92;
+    MatchInfo::reverse, match_info.hh:21-24)."""
+    Hinv, _ = homo_inverse(info.homo)
+    return MatchInfo(homo=Hinv, confidence=info.confidence,
+                     to_pos=info.from_pos, from_pos=info.to_pos,
+                     valid=info.valid, count=info.count)

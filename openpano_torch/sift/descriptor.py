@@ -24,6 +24,7 @@ import torch
 from ..config import Config
 from ..ops.windows import DESC_NB, DESC_W4, descriptor_histogram
 from .orientation import OrientedKeypoints, max_scale_factor, round_half_away
+from .pyramid import Octave
 
 
 class Features(NamedTuple):
@@ -36,6 +37,12 @@ class Features(NamedTuple):
 def desc_window_radius(cfg: Config) -> int:
     hist_w = max_scale_factor(cfg) * cfg.DESC_HIST_SCALE_FACTOR
     return int(round((0.5 ** 0.5) * hist_w * (cfg.DESC_HIST_WIDTH + 1)))
+
+
+def compute_descriptors(kp: OrientedKeypoints, octave: Octave,
+                        cfg: Config) -> torch.Tensor:
+    """[B, K, 128] descriptors of one octave's oriented keypoints."""
+    return describe_keypoints(kp, octave.mag, octave.ort, cfg)
 
 
 def describe_keypoints(kp: OrientedKeypoints, mag: torch.Tensor,

@@ -85,3 +85,11 @@ def detect_and_describe(imgs: torch.Tensor, orig_wh: torch.Tensor,
         desc=torch.where(kvalid[..., None], desc, 0.0),
         valid=kvalid,
     )
+
+
+def detect_and_describe_batch(imgs: torch.Tensor, orig_whs: torch.Tensor,
+                              cfg: Config) -> Features:
+    """imgs: [B, H, W, 3] (or [B, H, W] grey) working-size batch; orig_whs:
+    [B, 2].  :func:`detect_and_describe`, which is batched already (the
+    JAX package's vmapped form)."""
+    return detect_and_describe(imgs, orig_whs, cfg)

@@ -24,8 +24,10 @@ import torch
 
 from ..config import Config
 from ..ops.compact import compact_indices
-from ..ops.windows import ORI_NBINS, orientation_histogram
+from ..ops.windows import ORI_NBINS, SLAB_LANES, orientation_histogram, \
+    window_starts
 from .extrema import RawKeypoints
+from .pyramid import Octave
 
 
 class OrientedKeypoints(NamedTuple):
@@ -53,6 +55,28 @@ def ori_window_radius(cfg: Config) -> int:
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
     """C round(): half away from zero (torch.round is half-to-even)."""
     return torch.floor(torch.abs(x) + 0.5) * torch.sign(x)
+
+
+def slab_offsets(y: torch.Tensor, x: torch.Tensor, H: int, W: int, WR: int):
+    """Per-lane (dy, dx) offsets of a keypoint's [K, WR, 256] slab (K3's
+    layout, ``ops.windows.window_starts``) from the keypoint, as
+    broadcastable int32 [K, WR, 1] / [K, 1, 256]."""
+    r0, c0 = window_starts(y, x, H, W, WR)
+    y, x = y.to(torch.int32), x.to(torch.int32)
+    rows = torch.arange(WR, dtype=torch.int32, device=y.device)
+    lanes = torch.arange(SLAB_LANES, dtype=torch.int32, device=y.device)
+    dy = (r0[:, None] + rows)[:, :, None] - y[:, None, None]
+    dx = (c0[:, None] + lanes)[:, None, :] - x[:, None, None]
+    return dy, dx
+
+
+def assign_orientation(kp: RawKeypoints, octave: Octave, cfg: Config,
+                       cap: int | None = None) -> OrientedKeypoints:
+    """Orientation assignment of one octave's [B, K] keypoints over its
+    mag / ort planes, ``cap`` (MAX_DESC_PER_OCTAVE by default) slots."""
+    cap = cfg.MAX_DESC_PER_OCTAVE if cap is None else cap
+    out, _ = orient_keypoints(kp, octave.mag, octave.ort, cfg, cap)
+    return out
 
 
 def orient_keypoints(kp: RawKeypoints, mag: torch.Tensor, ort: torch.Tensor,

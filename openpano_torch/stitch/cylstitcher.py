@@ -29,7 +29,8 @@ from ..utils import prng
 from ..utils.timer import total_timer
 from .render import RenderPlan, blend, plan_render
 from .stitcher import blend_sharded, prologue, to_output
-from .stitcherbase import compute_features, compute_features_sharded
+from .stitcherbase import DeferredImages, compute_features, \
+    compute_features_sharded, upload_and_compute_features
 from .warp import make_projector, warp_images, warp_keypoints
 
 
@@ -53,7 +54,8 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
     """CylinderStitcher::build (cylstitcher.cc:20-28).
 
     imgs: [n, H, W, 3] uint8 or float32 in [0, 1] (numpy or torch), of one
-    shape.  key, output and device as for ``stitcher.stitch``.  Returns the
+    shape; a uint8 host stack without a mesh takes the transport
+    (``stitcherbase.upload_and_compute_features``).  key, output and device as for ``stitcher.stitch``.  Returns the
     corrected canvas (float32 numpy, INVALID=-1 where empty, pre-crop), or
     ``(canvas_u8, valid)`` with output="u8".  ``info_out`` collects the
     keypoint counts, the chosen ``hfactor`` with its ``slope`` and the
@@ -65,15 +67,23 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
     column bands before the perspective correction.  The h-factor search
     and the homography chain are small host math, run on every rank."""
     dev, key = prologue(cfg, output, key, device, mesh)
-    imgs = torch.as_tensor(np.asarray(imgs) if not torch.is_tensor(imgs)
-                           else imgs)
+    if not torch.is_tensor(imgs) or imgs.device.type == "cpu":
+        imgs = np.asarray(imgs)                   # host memory, no copy
     n, H, W = imgs.shape[0], imgs.shape[1], imgs.shape[2]
     mid = n >> 1
-    with total_timer("upload"):
-        imgs = imgs.to(dev)
-    with total_timer("calc_feature"):
-        feats = (compute_features(imgs, cfg) if mesh is None
-                 else compute_features_sharded(imgs, cfg, mesh))
+    if mesh is None and isinstance(imgs, np.ndarray) \
+            and imgs.dtype == np.uint8:
+        # the transport: the chroma streams under the h-factor search and
+        # joins before the warp
+        with total_timer("calc_feature"):
+            imgs, feats = upload_and_compute_features(imgs, cfg, device=dev)
+        imgs.start_background()
+    else:
+        with total_timer("upload"):
+            imgs = torch.as_tensor(imgs).to(dev)
+        with total_timer("calc_feature"):
+            feats = (compute_features(imgs, cfg) if mesh is None
+                     else compute_features_sharded(imgs, cfg, mesh))
     kpos, kvalid = feats.pos, feats.valid    # half-shifted, unwarped
     with total_timer("match_2nn"):
         matches = match_adjacent_pairs(feats.desc, feats.valid, cfg)
@@ -128,6 +138,8 @@ def stitch_cylinder(imgs, cfg: Config, key=None, output: str = "f32",
 
     # ---- warp every image and keypoint (cylstitcher.cc:64-67) ----
     with total_timer("warp"):
+        if isinstance(imgs, DeferredImages):
+            imgs = imgs.get()
         if mesh is None:
             warped = warp_images(proj, imgs, wH, wW, W, H)
         else:

@@ -24,10 +24,21 @@ JAX package's order (bands, then items), so the canvas is the same sum.
 stack in host memory, carrying each band's spill columns to the next;
 ``blend_linear_sharded`` runs them one band per rank, the spill columns
 sent to the next rank.
+
+``blend_linear_stream_u8`` (the JAX package's default u8 blend) runs the
+in-memory jobs in column bands and, once band g has run, finalizes strip g
+to u8 on the device and starts its download while later bands compute: as
+the download codec's planes (``io.wirecodec.CodedFetch``, under
+``OPENPANO_CODED_DOWNLOAD=1``, the default) or as raw RGBA.  It equals
+``blend_linear`` followed by ``f32_to_u8`` bit for bit.  ``packed_gather``
+(``OPENPANO_PACKED_GATHER=1`` in the stitcher) samples an R|G|B|valid int32
+image instead of the x-paired f32 one: exact for u8 sources up to the
+order of the lerp, so within one u8 level.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -267,14 +278,48 @@ def _sample_bilinear_paired(img6: torch.Tensor, y: torch.Tensor,
     return torch.where(valid[..., None], color, INVALID), valid
 
 
+def pack_imgs_u8(imgs: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, 3] f32 in [0, 1] (INVALID < 0 = empty) -> [N, H, W] int32
+    with R | G | B | valid bytes, 0 where empty: one element a bilinear
+    tap.  Exact for u8 sources (u8 -> f32 / 255 -> u8 round-trips)."""
+    valid = imgs[..., 0] >= 0
+    u8 = torch.round(torch.clamp(imgs, 0.0, 1.0) * 255.0).to(torch.int32)
+    packed = (u8[..., 0] | (u8[..., 1] << 8) | (u8[..., 2] << 16)
+              | (valid.to(torch.int32) << 24))
+    return torch.where(valid, packed, 0)
+
+
+def _sample_bilinear_packed(img_i32: torch.Tensor, y: torch.Tensor,
+                            x: torch.Tensor):
+    """Bilinear sampling over an R|G|B|valid-packed int32 image
+    (``pack_imgs_u8``): (color [..., 3], valid [...]); a sample is valid
+    when it is in bounds and its four taps are."""
+    h, w = img_i32.shape[0], img_i32.shape[1]
+    inb, iy, ix, ry, rx = bilinear_prologue(h, w, y, x)
+    p00 = img_i32[iy, ix]
+    p10 = img_i32[iy + 1, ix]
+    p01 = img_i32[iy, ix + 1]
+    p11 = img_i32[iy + 1, ix + 1]
+    ok = inb & (((p00 & p10 & p01 & p11) >> 24) > 0)
+
+    def rgb(p):
+        return torch.stack([p & 0xFF, (p >> 8) & 0xFF, (p >> 16) & 0xFF],
+                           -1).to(torch.float32) / 255.0
+
+    color = (rgb(p00) * (1 - ry) * (1 - rx) + rgb(p10) * ry * (1 - rx)
+             + rgb(p01) * (1 - ry) * rx + rgb(p11) * ry * rx)
+    return color, ok
+
+
 def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
               imgs6: torch.Tensor, hinvs: torch.Tensor, whs: torch.Tensor,
               jobs, plan: RenderPlan, ordered: bool, TH: int, TW: int,
               x0: int = 0):
     """Add the jobs ``(img, bbox, origin, item)`` in their order into the
     (color [*, *, 3], weight) f32 accumulators, whose column 0 is canvas
-    column ``x0``.  ``img`` indexes ``imgs6`` (x-paired, ``pair_imgs_x``),
-    ``hinvs`` [*, 3, 3] and ``whs`` [*, 2]."""
+    column ``x0``.  ``img`` indexes ``imgs6`` (x-paired, ``pair_imgs_x``,
+    or [*, H, W] int32 from ``pack_imgs_u8``), ``hinvs`` [*, 3, 3] and
+    ``whs`` [*, 2]."""
     dev = imgs6.device
     _, proj2homo = PROJECTIONS[plan.proj]
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -300,7 +345,9 @@ def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
         zsafe = torch.where(torch.abs(z) > 1e-20, z, 1e-20)
         sx = ret[0] / zsafe + wh[0] * 0.5
         sy = ret[1] / zsafe + wh[1] * 0.5
-        color, ok = _sample_bilinear_paired(imgs6[i], sy, sx)
+        sample = (_sample_bilinear_packed if imgs6.dim() == 3
+                  else _sample_bilinear_paired)
+        color, ok = sample(imgs6[i], sy, sx)
         w = 0.5 - torch.abs(sx / wh[0] - 0.5)
         if not ordered:  # blend both directions (blender.cc:33-35)
             w = w * (0.5 - torch.abs(sy / wh[1] - 0.5))
@@ -315,20 +362,26 @@ def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
         w_acc[oy : oy + TH, xs] += wm
 
 
-def _accumulate(imgs: torch.Tensor, plan: RenderPlan, ordered: bool):
-    """Run every job of ``_tile_jobs(plan, BLEND_GROUPS)`` in band order
-    into (color [Hp, Wp, 3], weight [Hp, Wp]) f32 accumulators."""
-    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, BLEND_GROUPS)
+def _band_runner(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,
+                 packed_gather: bool, item_slabs: bool, min_width: int = 0):
+    """The in-memory blend's jobs in ``BLEND_GROUPS`` column bands: (G, SW,
+    the (color [Hp, Wp, 3], weight [Hp, Wp]) f32 accumulators, at least
+    ``min_width`` wide, run(g), which adds band g's jobs into them)."""
+    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, BLEND_GROUPS,
+                                                  item_slabs=item_slabs)
+    Wp = max(Wp, min_width)
     dev = imgs.device
-    imgs6 = pair_imgs_x(imgs.to(torch.float32))
+    imgs = imgs.to(torch.float32)
+    src = pack_imgs_u8(imgs) if packed_gather else pair_imgs_x(imgs)
     hinvs = torch.as_tensor(plan.homo_invs, dtype=torch.float32, device=dev)
     whs = torch.as_tensor(plan.whs, dtype=torch.float32, device=dev)
     color_acc = torch.zeros(Hp, Wp, 3, dtype=torch.float32, device=dev)
     w_acc = torch.zeros(Hp, Wp, dtype=torch.float32, device=dev)
-    for jobs in band_jobs:
-        _run_jobs(color_acc, w_acc, imgs6, hinvs, whs, jobs, plan, ordered,
-                  TH, TW)
-    return color_acc, w_acc
+
+    def run(g: int):
+        _run_jobs(color_acc, w_acc, src, hinvs, whs, band_jobs[g], plan,
+                  ordered, TH, TW)
+    return G, SW, color_acc, w_acc, run
 
 
 def _normalize(color: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -339,33 +392,159 @@ def _normalize(color: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.where(has[..., None], out, INVALID)
 
 
-def blend_linear(imgs: torch.Tensor, plan: RenderPlan,
-                 ordered: bool) -> torch.Tensor:
+def blend_linear(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,
+                 packed_gather: bool = False,
+                 item_slabs: bool = True) -> torch.Tensor:
     """imgs: [N, H, W, 3] float in [0, 1] (INVALID marks empty pixels).
     Returns the [out_h, out_w, 3] f32 canvas, INVALID where nothing was
-    rendered."""
-    color_acc, w_acc = _accumulate(imgs, plan, ordered)
+    rendered.  ``packed_gather`` samples the ``pack_imgs_u8`` form;
+    ``item_slabs=False`` covers each item's bbox with 256x256 tiles its
+    hull touches instead of one slab per item."""
+    G, _, color_acc, w_acc, run = _band_runner(imgs, plan, ordered,
+                                               packed_gather, item_slabs)
+    for g in range(G):
+        run(g)
     return _normalize(color_acc[: plan.out_h, : plan.out_w],
                       w_acc[: plan.out_h, : plan.out_w])
 
 
-def band_slice(imgs: np.ndarray, img_ids: np.ndarray, dev) -> torch.Tensor:
+def _strip_rgb_has(color_acc: torch.Tensor, w_acc: torch.Tensor, start: int,
+                   out_h: int, SW: int):
+    """Columns [start, start + SW) of the accumulators normalized and
+    rounded to u8 (``f32_to_u8``'s values): (rgb int32 [out_h, SW, 3], 255
+    where empty; has [out_h, SW])."""
+    c = color_acc[:out_h, start:start + SW]
+    w = w_acc[:out_h, start:start + SW]
+    has = w > 0
+    out = c / torch.where(has, w, 1.0)[..., None]
+    u8 = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.int32)
+    return torch.where(has[..., None], u8, 255), has
+
+
+def _strip_planes_u8(color_acc: torch.Tensor, w_acc: torch.Tensor,
+                     start: int, out_h: int, SW: int) -> torch.Tensor:
+    """A finished column strip as the download codec's planes [4*out_h, SW]
+    u8: G, R-G, B-G (mod 256) and A stacked along rows; the chroma
+    differences delta-code tighter than raw R and B, and the codec's deltas
+    never cross rows.  ``_planes_to_rgba`` inverts it."""
+    rgb, has = _strip_rgb_has(color_acc, w_acc, start, out_h, SW)
+    g = rgb[..., 1]
+    rg = (rgb[..., 0] - g) & 0xFF
+    bg = (rgb[..., 2] - g) & 0xFF
+    return torch.cat([g, rg, bg, has.to(torch.int32)], dim=0).to(torch.uint8)
+
+
+def _planes_to_rgba(planes: np.ndarray, out_h: int) -> np.ndarray:
+    """Inverse of ``_strip_planes_u8`` on the host: [4*out_h, SW] u8 ->
+    RGBA u8 [out_h, SW, 4]."""
+    g = planes[:out_h]
+    rg = planes[out_h: 2 * out_h]
+    bg = planes[2 * out_h: 3 * out_h]
+    a = planes[3 * out_h:]
+    rgba = np.empty((out_h, planes.shape[1], 4), np.uint8)
+    rgba[..., 0] = g + rg  # u8 wraparound == mod 256
+    rgba[..., 1] = g
+    rgba[..., 2] = g + bg
+    rgba[..., 3] = a
+    return rgba
+
+
+def _strip_u8_i32(color_acc: torch.Tensor, w_acc: torch.Tensor, start: int,
+                  out_h: int, SW: int) -> torch.Tensor:
+    """A finished column strip as RGBA u8 viewed as int32 [out_h, SW] (one
+    element a pixel)."""
+    rgb, has = _strip_rgb_has(color_acc, w_acc, start, out_h, SW)
+    rgba = torch.cat([rgb, has[..., None].to(torch.int32)], -1)
+    return rgba.to(torch.uint8).view(torch.int32)[..., 0]
+
+
+def blend_linear_stream_u8(imgs: torch.Tensor, plan: RenderPlan,
+                           ordered: bool, groups: int = 4,
+                           packed_gather: bool = False,
+                           item_slabs: bool = True) -> np.ndarray:
+    """The linear blend straight to a host RGBA uint8 canvas [out_h, out_w,
+    4] (alpha 1 where rendered), equal to ``blend_linear`` then
+    ``f32_to_u8`` bit for bit.
+
+    The canvas is cut into ``groups`` column strips (``_tile_jobs(plan,
+    groups)``'s, as the JAX package cuts them).  The jobs run in
+    ``blend_linear``'s bands and order, whatever ``groups`` is, so every
+    pixel sums the same terms in the same order; a later band never writes
+    a column left of its own start, so once a band has run, each strip
+    left of the next band's start is final: it is rounded to u8 on the
+    device and its copy to the host starts while later bands compute.
+    (The JAX package runs its jobs in the strips' bands, which orders the
+    sums by ``groups``.)  Under ``OPENPANO_CODED_DOWNLOAD=1`` (the default)
+    a strip moves as the download codec's planes (``CodedFetch``), else as
+    raw RGBA; the strips are waited for in order after the last band."""
+    from ..io.transfer import HostCopy
+    from ..io.wirecodec import CodedFetch, count
+
+    G, SW = _tile_jobs(plan, groups, item_slabs=item_slabs)[:2]
+    GB, SWB, color_acc, w_acc, run = _band_runner(
+        imgs, plan, ordered, packed_gather, item_slabs, min_width=G * SW)
+    coded = os.environ.get("OPENPANO_CODED_DOWNLOAD", "1") == "1"
+    strips = []
+    for b in range(GB):
+        run(b)
+        final = G * SW if b == GB - 1 else (b + 1) * SWB
+        while len(strips) < G and (len(strips) + 1) * SW <= final:
+            g = len(strips)
+            if coded:
+                strips.append(CodedFetch(_strip_planes_u8(
+                    color_acc, w_acc, g * SW, plan.out_h, SW)))
+            else:
+                strips.append(HostCopy(_strip_u8_i32(
+                    color_acc, w_acc, g * SW, plan.out_h, SW)))
+                count(down_bytes=plan.out_h * SW * 4,
+                      down_plain_bytes=plan.out_h * SW * 4)
+    if coded:
+        parts = [_planes_to_rgba(s.wait(), plan.out_h) for s in strips]
+    else:
+        parts = [s.wait().view(np.uint8).reshape(plan.out_h, SW, 4)
+                 for s in strips]
+    return np.concatenate(parts, axis=1)[:, : plan.out_w]
+
+
+def _device_put_planar_coded(band: np.ndarray, dev) -> torch.Tensor:
+    """Upload a [NI, H, W, 3] u8 band slice through the 4-bit wire codec:
+    channel-planar rows ([NI*3*H, W], deltas never cross rows) encode in
+    threaded C and decode on the device, then go back to [NI, H, W, 3]; a
+    slice that defeats the nibble budget moves raw."""
+    from ..io.wirecodec import upload_u8_rows
+
+    ni, h, w, _ = band.shape
+    planar = np.ascontiguousarray(np.moveaxis(band, 3, 1)).reshape(-1, w)
+    return torch.movedim(upload_u8_rows(planar, dev).reshape(ni, 3, h, w),
+                         1, 3)
+
+
+def band_slice(imgs: np.ndarray, img_ids: np.ndarray, dev,
+               coded: bool = False) -> torch.Tensor:
     """Upload the host images ``img_ids`` of a band ([NI, H, W, 3], u8 or
     f32) and return them x-paired in f32 on ``dev`` (u8 taken as v / 255,
-    as the stitcher converts an uploaded stack)."""
-    band = torch.from_numpy(np.ascontiguousarray(imgs[img_ids])).to(dev)
+    as the stitcher converts an uploaded stack).  ``coded``: a u8 slice goes
+    through the wire codec (``_device_put_planar_coded``), with the same
+    result."""
+    host = np.ascontiguousarray(imgs[img_ids])
+    if coded and imgs.dtype == np.uint8:
+        band = _device_put_planar_coded(host, dev)
+    else:
+        band = torch.from_numpy(host).to(dev)
     band = band.to(torch.float32)
     if imgs.dtype == np.uint8:
         band = band / 255.0
     return pair_imgs_x(band)
 
 
-def band_paired(imgs, img_ids: np.ndarray, dev) -> torch.Tensor:
+def band_paired(imgs, img_ids: np.ndarray, dev,
+                coded: bool = False) -> torch.Tensor:
     """A band's images x-paired in f32 on ``dev``: uploaded from a host
-    stack (``band_slice``, the upload a test can count), or gathered from a
-    stack already on the device (u8 taken as v / 255 either way)."""
+    stack (``band_slice``, the upload a test can count; through the wire
+    codec when ``coded``), or gathered from a stack already on the device
+    (u8 taken as v / 255 either way)."""
     if isinstance(imgs, np.ndarray):
-        return band_slice(imgs, img_ids, dev)
+        return band_slice(imgs, img_ids, dev, coded)
     band = imgs[torch.as_tensor(img_ids, device=imgs.device)]
     band = band.to(torch.float32)
     if imgs.dtype == torch.uint8:
@@ -379,15 +558,17 @@ def band_jobs_local(jobs, img_ids: np.ndarray):
 
 
 def _band_accumulate(imgs, jobs, plan: RenderPlan, g: int, ordered: bool,
-                     TH: int, TW: int, Hp: int, SW: int, dev):
+                     TH: int, TW: int, Hp: int, SW: int, dev,
+                     coded: bool = False):
     """Band g's jobs from its own images into a [Hp, SW + TW] (colour,
-    weight) accumulator pair whose column 0 is canvas column g * SW."""
+    weight) accumulator pair whose column 0 is canvas column g * SW
+    (``coded``: a host slice uploads through the wire codec)."""
     c = torch.zeros(Hp, SW + TW, 3, dtype=torch.float32, device=dev)
     w = torch.zeros(Hp, SW + TW, dtype=torch.float32, device=dev)
     ids = np.unique(jobs[0])
     if len(ids):
         f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-        _run_jobs(c, w, band_paired(imgs, ids, dev),
+        _run_jobs(c, w, band_paired(imgs, ids, dev, coded),
                   f32(plan.homo_invs[ids]), f32(plan.whs[ids]),
                   band_jobs_local(jobs, ids), plan, ordered, TH, TW, g * SW)
     return c, w
@@ -402,21 +583,22 @@ def _spill(c, w, SW: int) -> torch.Tensor:
 def _band_finish(c, w, halo, TW: int, SW: int, u8_out: bool):
     """Fold the previous band's spill ``halo`` (None: nothing spills in)
     into the head columns and normalize the strip: [Hp, SW, 3] f32
-    (INVALID where empty), or with ``u8_out`` [Hp, SW, 4] RGBA u8, the
-    rounded colour, 255 and alpha 0 where empty."""
+    (INVALID where empty), or with ``u8_out`` the download codec's planes
+    [4*Hp, SW] u8 (``_strip_planes_u8``: the rounded colour, 255 and alpha
+    0 where empty)."""
     if halo is not None:
         c[:, :TW] += halo[..., :3]
         w[:, :TW] += halo[..., 3]
-    strip = _normalize(c[:, :SW], w[:, :SW])
     if u8_out:
-        u8, valid = f32_to_u8(strip)
-        strip = torch.cat([u8, valid[..., None].to(torch.uint8)], -1)
-    return strip
+        return _strip_planes_u8(c, w, 0, c.shape[0], SW)
+    return _normalize(c[:, :SW], w[:, :SW])
 
 
 def blend_linear_host_stream(imgs: np.ndarray, plan: RenderPlan,
                              ordered: bool, groups: int,
-                             u8_out: bool = False, device=None) -> np.ndarray:
+                             u8_out: bool = False,
+                             coded_wire: bool | None = None,
+                             device=None) -> np.ndarray:
     """Linear blend of an image stack that stays in host memory, on one
     device (``render.blend_linear_host_stream`` there): the canvas is cut
     into ``groups`` column bands of the in-memory blend's jobs, one slab per
@@ -434,20 +616,35 @@ def blend_linear_host_stream(imgs: np.ndarray, plan: RenderPlan,
     imgs: host numpy [N, H, W, 3], u8 or f32.  ``device``: the card unless
     another is named.  Returns the [out_h, out_w, 3] f32 canvas (INVALID
     where empty), or with ``u8_out`` the [out_h, out_w, 4] RGBA u8 canvas,
-    whose strips move to the host as u8."""
+    whose strips move to the host through the download codec
+    (``CodedFetch``), each waited for one band later, so that its device
+    buffers go while the next band computes.  ``coded_wire`` (default: as
+    ``u8_out``, for a u8 stack) uploads the band slices through the wire
+    codec."""
+    from ..io.wirecodec import CodedFetch
     from .stitcher import resolve_device
 
     dev = resolve_device(device)
     G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, groups, exact=True)
     assert G == groups, (G, groups)
+    if coded_wire is None:
+        coded_wire = u8_out
+    coded_wire = coded_wire and imgs.dtype == np.uint8
     halo, strips = None, []
     for g, jobs in enumerate(band_jobs):
         c, w = _band_accumulate(imgs, jobs, plan, g, ordered, TH, TW, Hp,
-                                SW, dev)
+                                SW, dev, coded_wire)
         strip = _band_finish(c, w, halo, TW, SW, u8_out)
         halo = _spill(c, w, SW)
-        strips.append(strip[: plan.out_h].cpu().numpy())
-    return np.concatenate(strips, axis=1)[:, : plan.out_w]
+        if u8_out:
+            strips.append(CodedFetch(strip))
+            if len(strips) >= 2:
+                strips[-2] = _planes_to_rgba(strips[-2].wait(), Hp)
+        else:
+            strips.append(strip[: plan.out_h].cpu().numpy())
+    if u8_out:
+        strips[-1] = _planes_to_rgba(strips[-1].wait(), Hp)
+    return np.concatenate(strips, axis=1)[: plan.out_h, : plan.out_w]
 
 
 def blend_linear_sharded(imgs, plan: RenderPlan, ordered: bool,
@@ -484,12 +681,18 @@ def blend(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,
           multiband: int) -> torch.Tensor:
     """Blender dispatch (ConnectedImages::blend, stitcher_image.cc:131-136):
     the multiband blender with ``multiband`` levels when it is > 0, else
-    the linear one."""
+    the linear one (``OPENPANO_PACKED_GATHER=1``: on the packed form)."""
     if multiband > 0:
         from .multiband import blend_multiband
 
         return blend_multiband(imgs, plan, multiband)
-    return blend_linear(imgs, plan, ordered)
+    return blend_linear(imgs, plan, ordered, packed_gather=packed_gather())
+
+
+def packed_gather() -> bool:
+    """Whether the linear blend samples the packed int32 form:
+    ``OPENPANO_PACKED_GATHER=1`` (off by default)."""
+    return os.environ.get("OPENPANO_PACKED_GATHER", "0") == "1"
 
 
 def f32_to_u8(canvas: torch.Tensor):

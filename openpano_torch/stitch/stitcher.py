@@ -7,12 +7,21 @@ features -> all-pairs (or ordered ring) matching + RANSAC -> camera
 estimation with the incremental bundle adjustment (or homography chaining)
 -> spherical (or flat) render plan -> linear (or multiband) blend.
 
-A uint8 host stack whose x-paired f32 copy would not fit the device budget
+A uint8 host stack (with no mesh and no preloaded match graph) takes the
+transport, as in the JAX package: its grey and residual planes upload
+through the wire codec and feed the features, and its chroma streams in a
+background thread released once the features are on the host and joined at
+the blend (``stitcherbase.upload_and_compute_features``).  A stack whose
+x-paired f32 copy would not fit the device budget
 (``OPENPANO_HBM_BUDGET_GB``, 8 by default), or any uint8 host stack when
-``OPENPANO_HOST_BLEND=1``, never goes to the device whole: the features
-upload it batch by batch and the blend streams column bands of it
+``OPENPANO_HOST_BLEND=1``, never goes to the device whole: only its grey
+planes upload, and the blend streams column bands of it
 (``render.blend_linear_host_stream``,
-``multiband.blend_multiband_host_stream``).
+``multiband.blend_multiband_host_stream``).  With u8 output, no multiband
+and ``STREAM_BLEND`` (the default), an in-memory blend streams its finished
+strips to the host (``render.blend_linear_stream_u8``, through the download
+codec unless ``OPENPANO_CODED_DOWNLOAD=0``); ``OPENPANO_PACKED_GATHER=1``
+samples the packed int32 images in the linear blend.
 """
 
 from __future__ import annotations
@@ -34,9 +43,9 @@ from ..utils import prng
 from ..utils.debug import assert_finite
 from ..utils.timer import total_timer
 from .render import blend, blend_linear_host_stream, blend_linear_sharded, \
-    f32_to_u8, plan_render
-from .stitcherbase import HostImages, compute_features, \
-    compute_features_sharded
+    blend_linear_stream_u8, f32_to_u8, packed_gather, plan_render
+from .stitcherbase import DeferredImages, HostImages, compute_features, \
+    compute_features_sharded, upload_and_compute_features
 
 
 class PairwiseGraph:
@@ -308,8 +317,9 @@ def stitch(imgs, cfg: Config, key=None, output: str = "f32", device=None,
     graph: a preloaded match graph (``io.artifacts.load_matchinfo_text``):
     the feature and match stages are skipped (the reference's
     load_matchinfo fixture, debug.cc:127-140), and ``info_out`` gets no
-    keypoint counts.  A uint8 host stack (numpy or a CPU tensor) past the
-    device budget stays in host memory (module docstring).
+    keypoint counts.  Otherwise a uint8 host stack (numpy or a CPU tensor)
+    takes the transport, and one past the device budget stays in host
+    memory (module docstring).
 
     mesh: a ``parallel.make_mesh`` mesh of ``torch.distributed`` ranks.
     Every rank calls with the same arguments and returns the whole result;
@@ -328,10 +338,17 @@ def stitch(imgs, cfg: Config, key=None, output: str = "f32", device=None,
         on_host = graph is None and host_u8 and stays_on_host(imgs.shape)
     else:
         on_host = host_u8 and sharded_blend_on_host(imgs.shape)
+    feats = None
+    if mesh is None and graph is None and host_u8:
+        with total_timer("calc_feature"):
+            imgs, feats = upload_and_compute_features(
+                imgs, cfg, rgb_stream=not on_host, device=dev)
+        imgs.start_background()  # the chroma streams under match and BA
+        assert_finite("calc_feature", pos=feats.pos, desc=feats.desc)
+        return _stitch_core(imgs, feats, whs_np, cfg, key, output, info_out)
     if not on_host:
         with total_timer("upload"):
             imgs = torch.as_tensor(imgs).to(dev)
-    feats = None
     if graph is None:
         with total_timer("calc_feature"):
             feats = (compute_features(imgs, cfg, dev) if mesh is None
@@ -441,6 +458,8 @@ def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
         proj = "flat"
 
     with total_timer("blend"):
+        if isinstance(imgs, DeferredImages):
+            imgs = imgs.get()          # join the background chroma stream
         plan = plan_render(homos, whs_np, mid, proj, cfg.MAX_OUTPUT_SIZE)
         if mesh is not None:
             src = imgs.host if isinstance(imgs, HostImages) else imgs
@@ -451,9 +470,14 @@ def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
             src = imgs.to(torch.float32)
             if imgs.dtype == torch.uint8:
                 src = src / 255.0
-            canvas = blend(src, plan, ordered=cfg.ORDERED_INPUT,
-                           multiband=cfg.MULTIBAND)
-            result = to_output(canvas, output)
+            if output == "u8" and cfg.MULTIBAND == 0 and cfg.STREAM_BLEND:
+                rgba = blend_linear_stream_u8(src, plan, cfg.ORDERED_INPUT,
+                                              packed_gather=packed_gather())
+                result = (rgba[..., :3], rgba[..., 3] > 0)
+            else:
+                canvas = blend(src, plan, ordered=cfg.ORDERED_INPUT,
+                               multiband=cfg.MULTIBAND)
+                result = to_output(canvas, output)
     if info_out is not None:
         info_out.update(homos=homos, plan=plan)
     return result

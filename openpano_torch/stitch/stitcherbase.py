@@ -16,10 +16,22 @@ Images run through the detector in batches of ``FEATURE_BATCH``: the scale
 space of one batch is the live set.  A stack in host memory uploads one batch
 at a time: the stitcher keeps image sets too large for the device there
 (``HostImages``).
+
+The transport (``upload_and_compute_features``), the JAX package's route for
+a uint8 host stack: the host splits each view into its rounded grey plane
+and a 2-bit channel-sum residual, which upload through the wire codec in
+chunks of ``OPENPANO_GREY_CHUNK`` views (8 by default) and feed the
+detector as the exact channel sum; the two chroma planes (red and blue less
+grey, mod 256) stream in a background thread (``DeferredImages``), joined
+just before the blend.  Every step is exact in integers, so the features
+and the blend's f32 stack are those of a plain upload bit for bit.
 """
 
 from __future__ import annotations
 
+import os
+import time
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +60,24 @@ class HostImages(NamedTuple):
     host: np.ndarray
     device: torch.device
 
+    def start_background(self):
+        """Nothing streams: the call site is that of ``DeferredImages``."""
+
+
+def _batch_features(grey_or_imgs: torch.Tensor, cfg: Config, w: int,
+                    h: int) -> Features:
+    """The features of one batch: u8 RGB greys first (``grey_u8``), a f32
+    [B, H, W] grey plane goes as it is, f32 RGB greys in the detector."""
+    wh_, ww_ = working_size(w, h, cfg.SIFT_WORKING_SIZE)
+    batch = grey_or_imgs
+    orig = torch.tensor([w, h], dtype=torch.float32, device=batch.device)
+    if batch.dtype == torch.uint8:
+        work = resize(grey_u8(batch), wh_, ww_)
+    else:
+        batch = batch.to(torch.float32)
+        work = resize(batch, wh_, ww_, rgb=batch.dim() == 4)
+    return detect_and_describe(work, orig.expand(batch.shape[0], 2), cfg)
+
 
 def compute_features(imgs, cfg: Config, dev=None) -> Features:
     """imgs: [N, H, W, 3] uint8 (grey route first) or float32 RGB in [0, 1],
@@ -57,20 +87,12 @@ def compute_features(imgs, cfg: Config, dev=None) -> Features:
     Returns batched Features with half-shifted original-image coordinates;
     raises when an image has no feature (stitcherbase.cc:20-21)."""
     n, h, w = imgs.shape[0], imgs.shape[1], imgs.shape[2]
-    wh_, ww_ = working_size(w, h, cfg.SIFT_WORKING_SIZE)
     parts = []
     for lo in range(0, n, FEATURE_BATCH):
         batch = imgs[lo : lo + FEATURE_BATCH]
         if isinstance(batch, np.ndarray):
             batch = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
-        orig = torch.tensor([w, h], dtype=torch.float32, device=batch.device)
-        if batch.dtype == torch.uint8:
-            work = resize(grey_u8(batch), wh_, ww_)
-        else:
-            batch = batch.to(torch.float32)
-            work = resize(batch, wh_, ww_, rgb=batch.dim() == 4)
-        parts.append(detect_and_describe(
-            work, orig.expand(batch.shape[0], 2), cfg))
+        parts.append(_batch_features(batch, cfg, w, h))
     feats = Features(*(torch.cat(f, dim=0) for f in zip(*parts)))
     _check_counts(feats)
     return feats
@@ -141,3 +163,163 @@ def compute_features_sharded(imgs, cfg: Config, mesh) -> Features:
     feats = Features(*(all_gather(mesh, a, "features")[rows] for a in local))
     _check_counts(feats)
     return feats
+
+
+def _grey_sum_to_f32(grey_u8: torch.Tensor, res_u8: torch.Tensor, n: int,
+                     h: int, w: int) -> torch.Tensor:
+    """Exact channel-sum grey: [N*H, W] u8 grey and {0,1,2} residual ->
+    [N, H, W] f32 mean of channels (r + g + b == 3 * grey + res - 1, in
+    integers), the value ``grey_u8`` gives on the RGB stack."""
+    s = 3 * grey_u8.to(torch.int32) + res_u8.to(torch.int32) - 1
+    return (s.to(torch.float32) / (3.0 * 255.0)).reshape(n, h, w)
+
+
+def _planar_rows_to_f32(rows_u8: torch.Tensor, n: int, h: int,
+                        w: int) -> torch.Tensor:
+    """[3*N*H, W] u8 channel-planar rows -> [N, H, W, 3] f32 in [0, 1]."""
+    planar = rows_u8.reshape(3, n, h, w)
+    return planar.permute(1, 2, 3, 0).to(torch.float32) / 255.0
+
+
+def _chroma_rows_to_f32(grey_u8: torch.Tensor, res_u8: torch.Tensor,
+                        chroma_rows: torch.Tensor, n: int, h: int,
+                        w: int) -> torch.Tensor:
+    """Exact RGB from the grey and residual planes (on the device since the
+    features) and the two chroma planes ([2*N*H, W] u8, red less grey rows
+    then blue less grey, mod 256): r = (grey + cr) mod 256, b = (grey + cb)
+    mod 256, g = (r + g + b) - r - b.  Integers throughout, so the result
+    equals the plain upload's u8 / 255 bit for bit."""
+    g32 = grey_u8.to(torch.int32)
+    s = 3 * g32 + res_u8.to(torch.int32) - 1
+    cr = chroma_rows[: n * h].to(torch.int32)
+    cb = chroma_rows[n * h :].to(torch.int32)
+    r = (g32 + cr) & 0xFF
+    b = (g32 + cb) & 0xFF
+    g = s - r - b
+    rgb = torch.stack([r, g, b], dim=0).to(torch.float32) / 255.0
+    return rgb.reshape(3, n, h, w).permute(1, 2, 3, 0)
+
+
+class DeferredImages:
+    """An f32 [N, H, W, 3] image stack whose upload may still be running:
+    the chroma planes stream in a ``BackgroundUpload`` thread (encoded
+    since upload time, sent once ``start_background`` releases them) and
+    ``get()`` joins it and rebuilds the stack on the device.  If the
+    wrapper is dropped before ``get()``, its finalizer abandons the
+    thread."""
+
+    def __init__(self, bg, n: int, h: int, w: int, device: torch.device,
+                 dev_grey: torch.Tensor | None = None,
+                 dev_res: torch.Tensor | None = None):
+        self._bg = bg
+        self.shape = (n, h, w, 3)
+        self.dtype = torch.float32
+        self.device = device
+        self._grey = dev_grey
+        self._res = dev_res
+        self._imgs = None
+        weakref.finalize(self, bg.abandon)
+
+    def start_background(self):
+        """Let the chroma stream onto the link (the stitcher calls it once
+        the features are on the host)."""
+        if self._bg is not None:
+            self._bg.release_wire()
+
+    def get(self) -> torch.Tensor:
+        if self._imgs is None:
+            rows = self._bg.result()
+            n, h, w, _ = self.shape
+            if self._grey is not None:
+                self._imgs = _chroma_rows_to_f32(self._grey, self._res, rows,
+                                                 n, h, w)
+            else:
+                self._imgs = _planar_rows_to_f32(rows, n, h, w)
+            self._bg = None
+            self._grey = self._res = None
+        return self._imgs
+
+
+def grey_chunk() -> int:
+    """Views per grey upload chunk: ``OPENPANO_GREY_CHUNK``, 8 by default."""
+    return max(int(os.environ.get("OPENPANO_GREY_CHUNK", "8")), 1)
+
+
+def _grey_features(grey8: np.ndarray, res: np.ndarray, cfg: Config,
+                   dev: torch.device):
+    """Upload the grey and residual planes in chunks of ``grey_chunk()``
+    views and run the detector over them in batches of ``FEATURE_BATCH``.
+    Returns ([(grey rows, residual rows)] per chunk on ``dev``, Features);
+    raises when an image has no feature."""
+    from ..io import wirecodec
+
+    n, h, w = grey8.shape
+    CH = grey_chunk()
+    grey_parts, feat_parts, pending = [], [], []
+    for lo in range(0, n, CH):
+        hi = min(lo + CH, n)
+        dg = wirecodec.upload_u8_rows(grey8[lo:hi].reshape(-1, w), dev)
+        dr = wirecodec.upload_2bit_rows(res[lo:hi].reshape(-1, w), dev)
+        grey_parts.append((dg, dr))
+        pending.extend(_grey_sum_to_f32(dg, dr, hi - lo, h, w).unbind(0))
+        while len(pending) >= FEATURE_BATCH or (hi == n and pending):
+            batch = torch.stack(pending[:FEATURE_BATCH])
+            del pending[:FEATURE_BATCH]
+            feat_parts.append(_batch_features(batch, cfg, w, h))
+    feats = Features(*(torch.cat(f, dim=0) for f in zip(*feat_parts)))
+    _check_counts(feats)
+    return grey_parts, feats
+
+
+def upload_and_compute_features(host_u8: np.ndarray, cfg: Config,
+                                rgb_stream: bool = True, device=None):
+    """The transport's upload and the features (the JAX package's
+    ``upload_and_compute_features``; module docstring).
+
+    host_u8: [N, H, W, 3] uint8 in host memory.  The grey and residual
+    planes upload in chunks of ``grey_chunk()`` views (4-bit codec and
+    2-bit planes) and become the exact f32 grey; the detector runs on them
+    in the batches of ``FEATURE_BATCH`` views that :func:`compute_features`
+    takes, so the features equal its features bit for bit.  With
+    ``rgb_stream`` the chroma planes are encoded in a ``BackgroundUpload``
+    thread (2-bit codec) whose copies wait for ``start_background``;
+    without it nothing more is uploaded and the stack stays in host memory
+    (``HostImages``, the path of stacks past the device budget).  ``device``:
+    the card unless another is named.
+
+    Returns (DeferredImages | HostImages, Features)."""
+    from ..io import wirecodec
+    from .. import native
+    from .stitcher import resolve_device
+
+    dev = resolve_device(device)
+    n, h, w = host_u8.shape[0], host_u8.shape[1], host_u8.shape[2]
+    t0 = time.perf_counter()
+    grey8, res = native.wire_grey_res_u8(host_u8)  # [N, H, W] u8 each
+    wirecodec.count(encode_s=time.perf_counter() - t0)
+    g8_rows = grey8.reshape(n * h, w)
+
+    def _chroma():
+        t0 = time.perf_counter()
+        cr = (host_u8[..., 0].reshape(n * h, w).astype(np.int16)
+              - g8_rows) & 0xFF
+        cb = (host_u8[..., 2].reshape(n * h, w).astype(np.int16)
+              - g8_rows) & 0xFF
+        out = np.concatenate([cr, cb], axis=0).astype(np.uint8)
+        wirecodec.count(encode_s=time.perf_counter() - t0)
+        return out
+
+    if rgb_stream:
+        bg = wirecodec.BackgroundUpload(_chroma, gate_wire=True, bits=2,
+                                        device=dev)
+    try:
+        grey_parts, feats = _grey_features(grey8, res, cfg, dev)
+    except BaseException:
+        if rgb_stream:
+            bg.abandon()
+        raise
+    if not rgb_stream:
+        return HostImages(host_u8, dev), feats
+    dev_grey = torch.cat([g for g, _ in grey_parts], dim=0)
+    dev_res = torch.cat([r for _, r in grey_parts], dim=0)
+    return DeferredImages(bg, n, h, w, dev, dev_grey, dev_res), feats

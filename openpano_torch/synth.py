@@ -4,12 +4,17 @@ A copy of the numpy-only generators of ``openpano_tpu.synth``, kept here so
 that the port never imports the JAX package (importing any module of it
 starts JAX).  Same functions, same seeds, same pixels.  ``strip_views`` adds
 the translated-strip set that TRANS mode stitches, cut from
-``procedural_scene_large`` so that no photo is needed.
+``procedural_scene_large`` so that no photo is needed.  ``photo_scene``
+reads the reference's result photo ``CMU0-all.jpg`` from the JAX package's
+default path, ``DEFAULT_PHOTO``; it raises when the photo is not there.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# the JAX package's default photo for photo_scene, as it names it
+DEFAULT_PHOTO = "/root/reference/results/CMU0-all.jpg"
 
 
 def procedural_scene(h: int, w: int, seed: int = 0) -> np.ndarray:
@@ -48,6 +53,18 @@ def procedural_scene(h: int, w: int, seed: int = 0) -> np.ndarray:
             m = (yy - cy) ** 2 + (xx - cx) ** 2 < s ** 2
         img[m] = img[m] * 0.25 + col * 0.75
     return np.clip(img, 0, 1)
+
+
+def photo_scene(path: str | None = None) -> np.ndarray:
+    """A reference result photo as texture (realistic statistics), float32
+    RGB in [0, 1]; ``path`` defaults to ``DEFAULT_PHOTO``."""
+    from .io.image import read_img
+
+    if path is None:
+        path = DEFAULT_PHOTO
+    img = np.asarray(read_img(path))
+    img = np.where(img < 0, 0.0, img)  # strip NO sentinels from cropped edges
+    return img.astype(np.float32)
 
 
 def render_views(
@@ -213,3 +230,76 @@ def strip_views(n: int, w: int, h: int, overlap: float = 0.4,
         views[k] = strip[y0 : y0 + h, x0 : x0 + w]
         xy[k] = x0, y0
     return (views, xy) if offsets else views
+
+
+def serpentine_rotations(cols: int, rows: int, yaw_step: float,
+                         pitch_step: float):
+    """Rotation matrices for a yaw x pitch grid visited in serpentine order
+    (consecutive entries always overlap: the ordered-input ring the
+    stitcher's linear matching assumes).  R = R_yaw @ R_pitch (pitch in the
+    camera's frame).  Returns ([n, 3, 3], [(row, col)] in visiting
+    order)."""
+    Rs = []
+    order = []
+    for r in range(rows):
+        cs = range(cols) if r % 2 == 0 else range(cols - 1, -1, -1)
+        for c in cs:
+            order.append((r, c))
+            yaw = c * yaw_step
+            pitch = (r - (rows - 1) / 2) * pitch_step
+            cy, sy = np.cos(yaw), np.sin(yaw)
+            cp, sp = np.cos(pitch), np.sin(pitch)
+            Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+            Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+            Rs.append(Ry @ Rx)
+    return np.stack(Rs), order
+
+
+def render_views_sphere(scene_eq: np.ndarray, rotations: np.ndarray,
+                        out_w: int, out_h: int, f: float,
+                        dtype=np.uint8) -> np.ndarray:
+    """Views of an equirectangular scene under arbitrary camera rotations
+    (the general rotational panorama; ground-truth pair homography H_ij =
+    K R_i^T R_j K^-1).
+
+    scene_eq: [He, We, 3] float32 in [0, 1], theta in [-pi, pi) over We,
+    phi over [-phi_max, phi_max] rows.  Returns [n, out_h, out_w, 3]."""
+    he, we = scene_eq.shape[:2]
+    n = rotations.shape[0]
+    u = np.arange(out_w) - (out_w - 1) / 2.0
+    v = np.arange(out_h) - (out_h - 1) / 2.0
+    uu, vv = np.meshgrid(u, v)
+    rays = np.stack([uu, vv, np.full_like(uu, f)], axis=-1)  # [H, W, 3]
+    phi_max = np.pi * he / we  # square pixels: phi rows at theta's rad/px
+    out = np.empty((n, out_h, out_w, 3), dtype)
+    for k in range(n):
+        d = rays @ rotations[k].T
+        theta = np.arctan2(d[..., 0], d[..., 2])
+        phi = np.arctan2(d[..., 1], np.hypot(d[..., 0], d[..., 2]))
+        sx = (theta / (2 * np.pi) + 0.5) * we          # wraps
+        sy = (phi / (2 * phi_max) + 0.5) * (he - 1)
+        x0 = np.floor(sx).astype(np.int64)
+        y0 = np.clip(np.floor(sy).astype(np.int64), 0, he - 2)
+        fx = (sx - x0)[..., None]
+        fy = np.clip(sy - y0, 0, 1)[..., None]
+        xa = x0 % we
+        xb = (x0 + 1) % we
+        img = (
+            scene_eq[y0, xa] * (1 - fy) * (1 - fx)
+            + scene_eq[y0, xb] * (1 - fy) * fx
+            + scene_eq[y0 + 1, xa] * fy * (1 - fx)
+            + scene_eq[y0 + 1, xb] * fy * fx
+        )
+        if dtype == np.uint8:
+            out[k] = np.round(img * 255.0)
+        else:
+            out[k] = img
+    return out
+
+
+def gt_rot_pair_homography(f: float, R_i: np.ndarray, R_j: np.ndarray):
+    """H mapping half-shifted coords of view j into view i for general
+    rotations: H = K R_i^T R_j K^-1."""
+    K = np.array([[f, 0, 0], [0, f, 0], [0, 0, 1.0]])
+    H = K @ R_i.T @ R_j @ np.linalg.inv(K)
+    return H / H[2, 2]

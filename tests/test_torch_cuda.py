@@ -283,3 +283,160 @@ def test_cli_stitches_on_card(card, tmp_path, monkeypatch):
     assert windows.descriptor_histogram.launches > k2
     canvas = read_img_u8("out.png")
     assert canvas.shape[1] > 480 and canvas.shape[0] > 100
+
+
+# ---- the transport on the card ----
+
+def _planes(seed=0):
+    """u8 planes for the codec: smooth rows with a little noise (inline
+    exceptions), one with more (past the inline prefix), pure noise (the
+    raw branch), and one with deltas in [-1, 1] (the 2-bit codec)."""
+    rng = np.random.default_rng(seed)
+
+    def smooth(rows, cols, step=3, frac=0.0):
+        x = np.cumsum(rng.integers(-step, step + 1, (rows, cols)), 1)
+        p = ((x + rng.integers(0, 256, (rows, 1))) % 256).astype(np.uint8)
+        m = rng.uniform(size=p.shape) < frac
+        p[m] = rng.integers(0, 256, int(m.sum()))
+        return p
+
+    return {"inline": (smooth(600, 1300, frac=0.005), 4),
+            "past inline": (smooth(400, 400, frac=0.03), 4),
+            "raw": (rng.integers(0, 256, (300, 700)).astype(np.uint8), 4),
+            "2-bit": (smooth(500, 900, step=1), 2)}
+
+
+def test_coded_fetch_on_card_equals_the_plane(card, monkeypatch):
+    """CodedFetch of card planes (every branch, and row chunks) equals a
+    plain .cpu() of them; the card's encode equals the CPU's bit for bit."""
+    from openpano_torch.io import wirecodec as twc
+
+    for name, (p, bits) in _planes().items():
+        dev = torch.from_numpy(p).to(card)
+        got = twc.CodedFetch(dev, bits=bits).wait()
+        np.testing.assert_array_equal(got, dev.cpu().numpy(), err_msg=name)
+        cap = p.size // 12
+        for a, b in zip(twc.encode_plane_device(dev, cap, bits, 8192),
+                        twc.encode_plane_device(dev.cpu(), cap, bits, 8192)):
+            assert torch.equal(a.cpu(), b), name
+    monkeypatch.setattr(twc, "_MAX_PLANE", 1 << 16)
+    p = _planes(1)["inline"][0]
+    fetch = twc.CodedFetch(torch.from_numpy(p).to(card))
+    assert len(fetch._parts) > 1
+    np.testing.assert_array_equal(fetch.wait(), p)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32, np.bool_])
+def test_fetch_on_card_equals_cpu(card, dtype):
+    """fetch (one pinned asynchronous copy) and the row-delta pair on card
+    tensors equal a plain .cpu() of them, bit for bit."""
+    from openpano_torch.io import transfer
+
+    rng = np.random.default_rng(15)
+    x = rng.integers(0, 256, (3, 700, 900))
+    x = (rng.normal(size=x.shape) if dtype == np.float32 else
+         x & 1 if dtype == np.bool_ else x).astype(dtype)
+    dev = torch.from_numpy(x).to(card)
+    got = transfer.fetch(dev)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    np.testing.assert_array_equal(got, x)
+    np.testing.assert_array_equal(transfer.fetch(dev[:, ::2]), x[:, ::2])
+    if dtype == np.uint8:
+        np.testing.assert_array_equal(transfer.fetch_u8_delta(dev), x)
+        up = transfer.device_put_u8_delta(x, card)
+        assert up.device.type == "cuda"
+        np.testing.assert_array_equal(up.cpu().numpy(), x)
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_background_upload_on_card(card, bits):
+    """A gated BackgroundUpload on its own stream, released, in 64 KB
+    chunks: the decoded card tensor equals the plane; an abandoned one
+    raises; upload_u8_rows and upload_2bit_rows land on the card."""
+    from openpano_torch.io import wirecodec as twc
+
+    planes = _planes(2)
+    p = planes["2-bit" if bits == 2 else "inline"][0]
+    bg = twc.BackgroundUpload(lambda: p, gate_wire=True, bits=bits,
+                              device=card)
+    bg.CHUNK_BYTES = 1 << 16
+    bg.release_wire()
+    got = bg.result()
+    assert got.device.type == "cuda"
+    # work queued on the default stream after result() sees the data
+    np.testing.assert_array_equal((got.to(torch.int32) + 0).cpu().numpy(), p)
+    raw = planes["raw"][0]
+    np.testing.assert_array_equal(
+        twc.BackgroundUpload(raw, device=card).result().cpu().numpy(), raw)
+    gone = twc.BackgroundUpload(p, gate_wire=True, device=card)
+    gone.abandon()
+    with pytest.raises(RuntimeError, match="abandoned"):
+        gone.result()
+    up = twc.upload_u8_rows(p, card)
+    assert up.device.type == "cuda"
+    np.testing.assert_array_equal(up.cpu().numpy(), p)
+    r = (p % 3).astype(np.uint8)
+    np.testing.assert_array_equal(twc.upload_2bit_rows(r, card).cpu().numpy(),
+                                  r)
+
+
+def _sweep(n=12, H=240, W=320, seed=0):
+    from openpano_torch.stitch.render import plan_render
+
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (n, H, W, 3)).astype(np.uint8)
+    Kinv = np.linalg.inv(np.diag([float(W), float(W), 1.0]))
+    homos = []
+    for i in range(n):
+        th = (i - n / 2) * 2.4 / n
+        R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                      [-np.sin(th), 0, np.cos(th)]])
+        homos.append(R.T @ Kinv)
+    plan = plan_render(np.stack(homos), np.repeat([[float(W), float(H)]], n,
+                                                  0), n // 2, "spherical",
+                       8000)
+    return imgs, plan
+
+
+@pytest.mark.parametrize("groups,coded", [(4, "1"), (4, "0"), (3, "1")])
+def test_stream_blend_on_card_equals_in_memory(card, monkeypatch, groups,
+                                               coded):
+    """blend_linear_stream_u8 on the card equals the card's blend_linear
+    followed by f32_to_u8 bit for bit, coded download on and off, at the
+    in-memory blend's 4 strips and at 3."""
+    from openpano_torch.stitch import render
+
+    monkeypatch.setenv("OPENPANO_CODED_DOWNLOAD", coded)
+    u8, plan = _sweep()
+    src = torch.from_numpy(u8).to(card).to(torch.float32) / 255.0
+    got = render.blend_linear_stream_u8(src, plan, ordered=False,
+                                        groups=groups)
+    rgb, valid = render.f32_to_u8(render.blend_linear(src, plan, False))
+    want = np.concatenate([rgb.cpu().numpy(), valid.cpu().numpy()[..., None]
+                           .astype(np.uint8)], -1)
+    assert got.shape == want.shape and valid.cpu().numpy().mean() > 0.5
+    np.testing.assert_array_equal(got, want)
+
+
+def test_transport_features_and_stack_on_card(card):
+    """upload_and_compute_features on the card: the features equal
+    compute_features of the uploaded stack bit for bit, K1 and K2 launch,
+    and the deferred stack equals the u8 stack / 255 bit for bit."""
+    from openpano_torch import Config
+    from openpano_torch.stitch import stitcherbase as sb
+    from openpano_torch.synth import procedural_scene_large, render_views
+
+    views, _ = render_views(procedural_scene_large(600, 2400, seed=0), 5,
+                            out_w=320, out_h=240, hfov_deg=32, overlap=0.5)
+    u8 = np.round(views * 255).astype(np.uint8)
+    cfg = Config(MAX_CAND_PER_OCTAVE=1024, MAX_KP_PER_OCTAVE=512,
+                 MAX_DESC_PER_OCTAVE=512, MAX_KP_PER_IMAGE=1024)
+    k1 = windows.orientation_histogram.launches
+    imgs, got = sb.upload_and_compute_features(u8, cfg, device=card)
+    assert windows.orientation_histogram.launches == k1 + 2   # 2 batches
+    want = sb.compute_features(torch.from_numpy(u8).to(card), cfg)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    imgs.start_background()
+    stack = imgs.get()
+    assert torch.equal(stack, torch.from_numpy(u8).to(card).float() / 255.0)

@@ -172,12 +172,21 @@ def single():
     views = rotating_views()
     info = {}
     real = stitcher.compute_features
+    real_up = stitcher.upload_and_compute_features
     feats = []
+
+    def upload(*a, **k):            # a uint8 stack takes the transport
+        imgs, f = real_up(*a, **k)
+        feats.append(f)
+        return imgs, f
+
     stitcher.compute_features = lambda *a: feats.append(real(*a)) or feats[0]
+    stitcher.upload_and_compute_features = upload
     try:
         canvas = stitch(views, Config(**SMALL), device="cpu", info_out=info)
     finally:
         stitcher.compute_features = real
+        stitcher.upload_and_compute_features = real_up
     info.update(pos=feats[0].pos.numpy(), valid=feats[0].valid.numpy())
     cyl = stitch_cylinder(cylinder_views(), Config(**CYLINDER),
                           device="cpu")

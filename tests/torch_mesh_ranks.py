@@ -157,9 +157,9 @@ def blend_suite(mesh, lin_views, lin_plan, strip, strip_plan, mb_u8,
     uploads = []
     real = render.band_slice
 
-    def record(imgs, ids, dev):
+    def record(imgs, ids, *a):
         uploads.append(len(ids))
-        return real(imgs, ids, dev)
+        return real(imgs, ids, *a)
 
     def run(label, fn):
         uploads.clear()
