@@ -85,7 +85,8 @@ Phases, each fatal on failure:
      codec, the chroma streamed in a background thread, the streamed u8
      blend with coded strip downloads), (b) the same with
      STREAM_BLEND=False and (c) with OPENPANO_CODED_DOWNLOAD=0, run in the
-     turns a b c c b a, counts read around each run alone: the main path's gates, K1 and K2 launched 10
+     turns a b c c b a, counts read around each run alone: the main
+     path's gates, K1 and K2 launched 10
      times, the three canvases and valid masks equal bit for bit; the bytes
      each way (coded against raw), the stage times and the host encode's
      time printed; (d) the host-stream linear blend of (a)'s plan with its
@@ -97,11 +98,24 @@ Phases, each fatal on failure:
      5's cameras: within 1e-9 (focal, relative) and 1e-12 (R); from them
      with the focals 5% long: within 1e-9 (focal) and 1e-10 (R), with the
      CPU's own change of R when the points move by 1e-15 printed beside
-     it; two card runs bit for bit, the error lowered.
+     it; two card runs bit for bit, the error lowered;
+  15. headline bench: ``openpano_torch.bench.headline.run`` (what
+     ``python -m openpano_torch.bench`` runs) on the headline views, in this
+     process, counts read around it alone; its JSON line printed; bench.py's
+     gates (the canvas shape, a valid share above 0.3, the reprojection
+     error under 2.5 px, the multiband NCC above 0.97), K1 and K2 launched
+     10 times in each timed run, and its kernel check passed;
+  16. UAV strip: ``openpano_torch.bench.giga`` in trans mode at
+     GIGA_r04.json's command (500 views of 500x560 at 70% overlap, working
+     size 400), run once, counts read around it alone; its JSON line
+     printed; every adjacent pair connected, each pairwise offset within 6
+     px of the truth, the canvas width within 5% of the true extent, K1 and
+     K2 launched once per feature batch (125 times); the chain's drift, the
+     canvas height and the valid share printed.
 Every phase before 14 that stitches a uint8 stack without a mesh runs the
-transport too (phase 10's without the chroma stream).
-The second-to-last line is the kernel report as JSON; the last line is the
-device record.
+transport too (phase 10's without the chroma stream).  Each phase prints
+its seconds.  The second-to-last line is the kernel report as JSON; the
+last line is the device record.
 """
 
 from __future__ import annotations
@@ -123,6 +137,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from openpano_torch import Config, stitch_images  # noqa: E402
 from openpano_torch import _build, cli, native  # noqa: E402
+from openpano_torch.bench import giga, headline  # noqa: E402
+from openpano_torch.bench.headline import camera_error, canvas_ncc, \
+    expected_canvas, headline_inputs  # noqa: E402
 from openpano_torch.camera import bundle_adjuster as tba  # noqa: E402
 from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
 from openpano_torch.camera.rotation import rodrigues, \
@@ -144,15 +161,16 @@ from openpano_torch.stitch.render import blend_linear, \
 from openpano_torch.stitch.stitcherbase import FEATURE_BATCH, \
     compute_features, grey_u8  # noqa: E402
 from openpano_torch.stitch.warp import make_projector  # noqa: E402
-from openpano_torch.synth import gt_pair_homography, \
-    procedural_scene_large, render_views, strip_views  # noqa: E402
+from openpano_torch.synth import procedural_scene_large, render_views, \
+    strip_views  # noqa: E402
 from openpano_torch.utils import prng, timer  # noqa: E402
 
-N_VIEWS, VIEW_W, VIEW_H, OVERLAP = 38, 1300, 867, 0.4
 # the headline sweep of bench.py (photo scene there, procedural here)
-HFOV, SWEEP_OVERLAP, JITTER, SCENE = 40, 0.8, 0.05, (1400, 11000)
+N_VIEWS, VIEW_W, VIEW_H = (headline.FULL.n, headline.FULL.out_w,
+                           headline.FULL.out_h)
+OVERLAP = 0.4                   # the TRANS strip's
 HEADLINE = dict(MAX_KP_PER_IMAGE=2048, MAX_MATCHES_PER_PAIR=1024)
-REPROJ_LIMIT_PX = 2.5           # bench.py:113
+REPROJ_LIMIT_PX = headline.REPROJ_LIMIT_PX
 GATE = 1e-4                     # max|a-b| / max|b|, kernel vs plain
 # the chained placement on this strip is off by 24.98 px at most (H100 runs
 # of this script); the limit leaves twice that
@@ -165,10 +183,13 @@ SMALL = dict(RANSAC_ITERATIONS=400, MAX_CAND_PER_OCTAVE=1024,
              SIFT_WORKING_SIZE=400)
 TRANS = dict(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True)
 CYLINDER = dict(CYLINDER=True, ESTIMATE_CAMERA=False, ORDERED_INPUT=True)
-MB_NCC_LIMIT = 0.97             # bench.py:173, multiband against linear
+MB_NCC_LIMIT = headline.MB_NCC_LIMIT   # multiband against linear
 HOST_BUDGET_GB = "1.0"          # the host-stream path's OPENPANO_HBM_BUDGET_GB
 HOST_GROUPS = 7                 # its bands: ceil(1.54 GB / (1.0 GB / 4))
 MESH_VALID_AGREE = 0.9995       # tests/test_parallel.py:61, mesh against one
+# GIGA_r04.json's UAV strip (its "cmd"), run once by phase 16
+UAV_ARGV = ["--images", "500", "--size", "500", "560", "--overlap", "0.7",
+            "--working-size", "400"]
 
 # name, wrapper (holds the launch count), kernel, plain version, TPU kernel
 KERNELS = (
@@ -515,14 +536,6 @@ def compare_card_cpu(label: str, views: np.ndarray, cfg: Config):
     return gi
 
 
-def canvas_ncc(a, va, b, vb) -> float:
-    """Normalized cross-correlation of two canvases over the pixels valid
-    in both."""
-    m = va & vb
-    x, y = a[m] - a[m].mean(), b[m] - b[m].mean()
-    return float((x * y).sum() / np.sqrt((x * x).sum() * (y * y).sum()))
-
-
 def reference_phase():
     """The TRANS strip, the default-Config rotating views and a CYLINDER +
     multiband sweep on the card and on the CPU; the bundle adjustment on
@@ -695,19 +708,7 @@ def trans_path(u8: np.ndarray, xy: np.ndarray) -> dict:
     # corners: each pairwise affine on its own, and the chain outward from
     # the middle view, where TRANS mode compounds the pairs' small scale and
     # shear errors over up to N/2 hops
-    corners = np.array([[-VIEW_W / 2, -VIEW_H / 2, 1], [VIEW_W / 2, -VIEW_H / 2, 1],
-                        [-VIEW_W / 2, VIEW_H / 2, 1], [VIEW_W / 2, VIEW_H / 2, 1]])
-
-    def corner_err(H, shift):
-        p = corners @ H.T
-        return float(np.abs(p[:, :2] / p[:, 2:] - corners[:, :2] - shift).max())
-
-    pair_err = [corner_err(info["graph"].homo[k - 1, k], xy[k] - xy[k - 1])
-                for k in range(1, N_VIEWS)]
-    f = 0.5 * (VIEW_W + VIEW_H)
-    mid = N_VIEWS >> 1
-    chain_err = max(corner_err(info["homos"][k] * [[f], [f], [1]],
-                               xy[k] - xy[mid]) for k in range(N_VIEWS))
+    pair_err, chain_err = giga.strip_placement(info, xy, VIEW_W, VIEW_H)
     print(f"TRANS placement: pairwise corner error median "
           f"{np.median(pair_err):.3f} max {max(pair_err):.3f} px; chained "
           f"from the middle view max {chain_err:.3f} px over a {span[0]} px "
@@ -715,55 +716,6 @@ def trans_path(u8: np.ndarray, xy: np.ndarray) -> dict:
     check(max(pair_err) < 6.0, "TRANS: a pairwise transform is off")
     check(chain_err < CHAIN_LIMIT_PX, "TRANS: views misplaced along the chain")
     return launches
-
-
-def headline_inputs():
-    """The shuffled uint8 headline views, the truth with its yaws in the
-    shuffled order, and the permutation."""
-    views, truth = render_views(
-        procedural_scene_large(*SCENE, seed=0), N_VIEWS, out_w=VIEW_W,
-        out_h=VIEW_H, hfov_deg=HFOV, overlap=SWEEP_OVERLAP, jitter=JITTER,
-        seed=5)
-    perm = np.random.default_rng(0).permutation(N_VIEWS)
-    u8 = np.round(views[perm] * 255.0).astype(np.uint8)
-    return u8, dict(truth, yaws=truth["yaws"][perm]), perm
-
-
-def expected_canvas(truth: dict, cfg: Config) -> tuple[int, int]:
-    """(w, h) of the spherical canvas the true cameras give: yaw rotations
-    about the mean viewing direction (where ``straighten`` puts the frame),
-    the true focal, the middle view as the resolution reference, the
-    MAX_OUTPUT_SIZE cap."""
-    f, yaws = truth["focal_px"], truth["yaws"]
-    centre = np.arctan2(np.sin(yaws).sum(), np.cos(yaws).sum())
-    Kinv = np.linalg.inv(np.diag([f, f, 1.0]))
-    homos = []
-    for yaw in yaws - centre:
-        c, s = np.cos(yaw), np.sin(yaw)
-        homos.append(np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]) @ Kinv)
-    whs = np.repeat([[float(VIEW_W), float(VIEW_H)]], N_VIEWS, 0)
-    plan = plan_render(np.stack(homos), whs, N_VIEWS >> 1, "spherical",
-                       cfg.MAX_OUTPUT_SIZE)
-    return plan.out_w, plan.out_h
-
-
-def camera_error(homos: np.ndarray, truth: dict, perm: np.ndarray) -> float:
-    """bench.py:91-113: mean reprojection error, over the pairs adjacent in
-    the sweep, of the recovered pairwise homography against the true one,
-    on a grid over the overlap."""
-    gx, gy = np.meshgrid(np.linspace(-VIEW_W * 0.45, VIEW_W * 0.05, 9),
-                         np.linspace(-VIEW_H * 0.4, VIEW_H * 0.4, 7))
-    grid = np.stack([gx.ravel(), gy.ravel(), np.ones(gx.size)], 1)
-    inv_perm = np.argsort(perm)
-    errs = []
-    for orig in range(N_VIEWS - 1):
-        i, j = inv_perm[orig], inv_perm[orig + 1]
-        H_est = np.linalg.inv(homos[i]) @ homos[j]
-        H_gt = gt_pair_homography(truth, i, j, VIEW_W, VIEW_H)
-        pe, pg = grid @ H_est.T, grid @ H_gt.T
-        errs.append(np.linalg.norm(pe[:, :2] / pe[:, 2:3]
-                                   - pg[:, :2] / pg[:, 2:3], axis=1).mean())
-    return float(np.mean(errs))
 
 
 def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
@@ -1371,6 +1323,81 @@ def transport_phase(u8: np.ndarray, truth: dict, perm: np.ndarray,
     return runs["a"][3]
 
 
+def bench_phase(inputs: tuple) -> dict:
+    """Phase 15: the headline bench (``openpano_torch.bench.headline.run``,
+    the entry of ``python -m openpano_torch.bench``) in this process on the
+    headline views, counts read around it alone.  Its own gates (bench.py's,
+    each timed run's K1 and K2 launches, the kernel check) raise inside;
+    here again: every timed run launched K1 and K2 once per feature batch,
+    the whole bench once per feature batch of each of its stitches besides
+    the kernel check's one launch each, and ``kernel_parity.ok``.  Returns
+    the launches of its stitches."""
+    reset_counts()
+    result = headline.run(inputs=inputs)
+    launches = read_counts()
+    print(json.dumps(result))
+    extra = result["extra"]
+    batches = extra["feature_batches"]
+    stitches = 1 + len(extra["warm_walls_s"]) + 2 * (extra["multiband"]
+                                                     is not None)
+    parity = extra["kernel_parity"]
+    print(f"bench: {result['value']} img/s (best of {extra['warm_walls_s']} "
+          f"s, cold {extra['cold_wall_s']} s), reprojection "
+          f"{extra['mean_reproj_err_px']} px, multiband NCC "
+          f"{extra['multiband']['ncc_vs_linear']}, kernel parity "
+          f"{parity['ori_hist_rel_err']} / {parity['desc_hist_rel_err']} / "
+          f"resize {parity['resize_rel_err']}; link host -> card "
+          f"{extra['link']['h2d_bytes_per_s']} GB/s, card -> host "
+          f"{extra['link']['d2h_bytes_per_s']} GB/s; kernels launched "
+          f"{json.dumps(launches)} over {stitches} stitches")
+    check(parity["ok"], f"bench: kernel parity {parity}")
+    for run in extra["launches"]:
+        for name, _, _, _, _ in KERNELS:
+            check(run[name] == batches,
+                  f"bench: {name} launched {run[name]} times in a timed run")
+    for name, _, _, _, _ in KERNELS:
+        want = stitches * batches + parity["launches"][name]
+        check(launches[name] == want,
+              f"bench: {name} launched {launches[name]} times, not {want}")
+    return {k: v - parity["launches"].get(k, 0) for k, v in launches.items()}
+
+
+def uav_phase() -> dict:
+    """Phase 16: the UAV strip of ``giga`` in trans mode at GIGA_r04.json's
+    command, run once, counts read around it alone: ``giga.trans_gates``
+    (every adjacent pair connects, each pairwise offset within 6 px of the
+    truth, the canvas width within 5% of the true extent, K1 and K2 launched
+    once per feature batch).  The chain's drift, the canvas height and the
+    valid share are printed, not gated.  Returns the launches."""
+    args = giga.parse_args(UAV_ARGV)
+    reset_counts()
+    result = giga.run_trans(args, cold=False)
+    launches = read_counts()
+    print(json.dumps(result))
+    print(f"UAV strip: {result['images']} views, {result['wall_s']} s, canvas "
+          f"{result['canvas'][0]}x{result['canvas'][1]} against the true "
+          f"extent {result['true_extent'][0]}x{result['true_extent'][1]}, "
+          f"valid share {result['valid_frac']}, pairwise offsets within "
+          f"{result['max_pair_offset_err_px']} px, chain drift "
+          f"{result['chain_drift_px']} px, peak device memory "
+          f"{result['peak_device_gib']} GiB; kernels launched "
+          f"{json.dumps(launches)} for {result['feature_batches']} feature "
+          f"batches")
+    bad = giga.trans_gates(result)
+    check(not bad, f"UAV strip: {bad}")
+    for name, _, _, _, _ in KERNELS:
+        check(launches[name] == result["feature_batches"],
+              f"UAV strip: {name} launched {launches[name]} times")
+    return launches
+
+
+@contextlib.contextmanager
+def phase(label: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+
+
 def main(kernels_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: this script measures the card", file=sys.stderr)
@@ -1384,56 +1411,66 @@ def main(kernels_only: bool = False) -> int:
     kind = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    lib = _build.build_cuda("windows")
-    print(f"build: {time.perf_counter() - t0:.2f} s {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line) \
-                or "spill" in line:
-            print(f"  {line.strip()}")
+    with phase("2 build"):
+        lib = _build.build_cuda("windows")
+        print(f"build: {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line) \
+                    or "spill" in line:
+                print(f"  {line.strip()}")
 
-    t0 = time.perf_counter()
-    u8, truth, perm = headline_inputs()
-    views, xy = strip_views(N_VIEWS, VIEW_W, VIEW_H, overlap=OVERLAP, seed=0,
-                            offsets=True)
-    strip = np.round(views * 255).astype(np.uint8)
-    del views
-    print(f"inputs: {N_VIEWS} uint8 views {VIEW_W}x{VIEW_H} of a "
-          f"{np.degrees(truth['yaws'].max() - truth['yaws'].min()) + HFOV:.1f}"
-          f" degree sweep (focal {truth['focal_px']:.2f} px), and a "
-          f"{N_VIEWS}-view strip at overlap {OVERLAP} "
-          f"({time.perf_counter() - t0:.1f} s to make)")
+    with phase("3 inputs"):
+        u8, truth, perm = headline_inputs()
+        views, xy = strip_views(N_VIEWS, VIEW_W, VIEW_H, overlap=OVERLAP,
+                                seed=0, offsets=True)
+        strip = np.round(views * 255).astype(np.uint8)
+        del views
+        sweep = np.degrees(truth["yaws"].max() - truth["yaws"].min())
+        print(f"inputs: {N_VIEWS} uint8 views {VIEW_W}x{VIEW_H} of a "
+              f"{sweep + headline.FULL.hfov:.1f} degree sweep (focal "
+              f"{truth['focal_px']:.2f} px), and a {N_VIEWS}-view strip at "
+              f"overlap {OVERLAP}")
 
-    batches = {"main": capture_path_inputs(u8, Config(**HEADLINE)),
-               "TRANS": capture_path_inputs(strip, Config(**TRANS))}
-    report = kernel_phase(batches)
-    report.append(slab_phase(batches["main"]["descriptor_histogram"]))
-    del batches
+    with phase("4 kernels"):
+        batches = {"main": capture_path_inputs(u8, Config(**HEADLINE)),
+                   "TRANS": capture_path_inputs(strip, Config(**TRANS))}
+        report = kernel_phase(batches)
+        report.append(slab_phase(batches["main"]["descriptor_histogram"]))
+        del batches
     if kernels_only:
         print(json.dumps({"kernels": report}))
         return 0
-    t0 = time.perf_counter()
-    ref = reference_phase()
-    brief_phase(u8, perm)
-    print(f"references and BRIEF: {time.perf_counter() - t0:.1f} s")
-    trans_launches = trans_path(strip, xy)
-    linear = main_path(u8, truth, perm)
-    launches = linear[3]
-    multiband = multiband_path(u8, truth, perm, linear[:3])
-    mb_launches, mb_plan = multiband[3], multiband[2]["plan"]
-    cli_launches = cli_phase(u8, linear[:3])
-    host_launches, _ = host_stream_path(u8, truth, perm, linear[:3])
-    blend_memory_phase(u8, linear[2]["plan"], mb_plan)
-    cylinder = cylinder_path(u8, truth, perm)
-    cyl_launches = cylinder[3]
-    t0 = time.perf_counter()
-    mesh_launches = mesh_phase(u8, truth, perm, {
-        "main": linear, "multiband": multiband, "CYLINDER": cylinder})
-    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    with phase("5 references and BRIEF"):
+        ref = reference_phase()
+        brief_phase(u8, perm)
+    with phase("6 TRANS path"):
+        trans_launches = trans_path(strip, xy)
+    with phase("7 main path"):
+        linear = main_path(u8, truth, perm)
+        launches = linear[3]
+    with phase("8 multiband path"):
+        multiband = multiband_path(u8, truth, perm, linear[:3])
+        mb_launches, mb_plan = multiband[3], multiband[2]["plan"]
+    with phase("9 CLI"):
+        cli_launches = cli_phase(u8, linear[:3])
+    with phase("10 host-stream path"):
+        host_launches, _ = host_stream_path(u8, truth, perm, linear[:3])
+    with phase("11 blend memory"):
+        blend_memory_phase(u8, linear[2]["plan"], mb_plan)
+    with phase("12 CYLINDER path"):
+        cylinder = cylinder_path(u8, truth, perm)
+        cyl_launches = cylinder[3]
+    with phase("13 mesh path"):
+        mesh_launches = mesh_phase(u8, truth, perm, {
+            "main": linear, "multiband": multiband, "CYLINDER": cylinder})
     del linear, multiband, cylinder
-    t0 = time.perf_counter()
-    transport_launches = transport_phase(u8, truth, perm, ref)
-    print(f"transport phase: {time.perf_counter() - t0:.1f} s")
+    with phase("14 transport"):
+        transport_launches = transport_phase(u8, truth, perm, ref)
+    with phase("15 headline bench"):
+        bench_launches = bench_phase((u8, truth, perm))
+    del u8, strip
+    with phase("16 UAV strip"):
+        uav_launches = uav_phase()
     for entry in report:
         k = entry["name"]
         entry.update(launches=launches[k], trans_launches=trans_launches[k],
@@ -1442,7 +1479,9 @@ def main(kernels_only: bool = False) -> int:
                      cli_launches=cli_launches[k],
                      host_stream_launches=host_launches[k],
                      mesh_launches=mesh_launches[k],
-                     transport_launches=transport_launches[k])
+                     transport_launches=transport_launches[k],
+                     bench_launches=bench_launches[k],
+                     uav_launches=uav_launches[k])
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": report}))

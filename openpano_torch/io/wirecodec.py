@@ -23,8 +23,9 @@ code there.  On the CPU the same code runs with plain copies: no pinned
 memory, no streams.
 
 ``STATS`` counts what the codec moved, for the chip run's report: the bytes
-on the link each way and the bytes of the planes they carried, and the
-seconds of host encode and decode (from every thread).
+on the link each way and the bytes of the planes they carried (of the bytes
+up, ``bg_up_bytes`` went in a ``BackgroundUpload``), and the seconds of host
+encode and decode (from every thread).
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ _stats_lock = threading.Lock()
 
 def reset_stats():
     with _stats_lock:
-        STATS.update(up_bytes=0, up_plain_bytes=0, down_bytes=0,
-                     down_plain_bytes=0, encode_s=0.0, decode_s=0.0)
+        STATS.update(up_bytes=0, up_plain_bytes=0, bg_up_bytes=0,
+                     down_bytes=0, down_plain_bytes=0, encode_s=0.0,
+                     decode_s=0.0)
 
 
 def count(**amounts):
@@ -282,12 +284,14 @@ class BackgroundUpload:
                 self._error = RuntimeError("BackgroundUpload abandoned")
                 return
             if stream is None:
-                count(up_bytes=plane.nbytes, up_plain_bytes=plane.nbytes)
+                count(up_bytes=plane.nbytes, up_plain_bytes=plane.nbytes,
+                      bg_up_bytes=plane.nbytes)
                 self._result = ("raw", self._chunked_put(plane), plane.shape)
                 return
             gaps, vals = _pad_exceptions(stream)
-            count(up_bytes=stream.packed.nbytes + gaps.nbytes + vals.nbytes,
-                  up_plain_bytes=stream.rows * stream.cols)
+            wire = stream.packed.nbytes + gaps.nbytes + vals.nbytes
+            count(up_bytes=wire, up_plain_bytes=stream.rows * stream.cols,
+                  bg_up_bytes=wire)
             parts = self._chunked_put(stream.packed)
             dg, dv = self._chunked_put(gaps)[0], self._chunked_put(vals)[0]
             self._result = ("packed", parts, dg, dv, stream.rows,

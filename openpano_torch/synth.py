@@ -11,6 +11,8 @@ default path, ``DEFAULT_PHOTO``; it raises when the photo is not there.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 # the JAX package's default photo for photo_scene, as it names it
@@ -139,32 +141,49 @@ def gt_pair_homography(truth: dict, i: int, j: int, out_w: int, out_h: int) -> n
     return H / H[2, 2]
 
 
-def procedural_scene_large(h: int, w: int, seed: int = 0) -> np.ndarray:
-    """Corner-rich texture that scales to equirect-panorama sizes
-    (procedural_scene's per-shape full-canvas masks are O(shapes * h * w)
-    — hopeless at 500 Mpx).  Fully vectorized: multi-octave value noise
-    for low-frequency content + a POSTERIZED independent noise field
-    (random 24-color palette, hard edges at every cell boundary — corner
-    features at triple points for SIFT), float32 in [0,1]."""
+def _bilinear_rows(grid: np.ndarray, h: int, w: int, rows: slice):
+    """Rows ``rows`` of ``grid`` ([gh, gw] or [gh, gw, 3]) upsampled to
+    h x w by the value-noise lerp, float32."""
+    gh, gw = grid.shape[:2]
+    ys = np.linspace(0, gh - 1.001, h)[rows]
+    xs = np.linspace(0, gw - 1.001, w)
+    y0 = ys.astype(int)
+    x0 = xs.astype(int)
+    tail = (1,) * (grid.ndim - 2)
+    fy = (ys - y0).reshape(-1, 1, *tail).astype(np.float32)
+    fx = (xs - x0).reshape(1, -1, *tail).astype(np.float32)
+    return (
+        grid[y0][:, x0] * (1 - fy) * (1 - fx)
+        + grid[y0][:, x0 + 1] * (1 - fy) * fx
+        + grid[y0 + 1][:, x0] * fy * (1 - fx)
+        + grid[y0 + 1][:, x0 + 1] * fy * fx
+    )
+
+
+def _large_noise_grids(h: int, w: int, rng) -> list[np.ndarray]:
+    return [rng.uniform(size=(h // 2 ** o + 2, w // 2 ** o + 2, 3)).astype(
+        np.float32) for o in range(3, 8)]
+
+
+def scene_large_noise(h: int, w: int, seed: int = 0,
+                      rows: slice = slice(None)) -> np.ndarray:
+    """Rows ``rows`` of ``procedural_scene_large``'s value noise, before
+    its division by the whole noise's maximum."""
+    grids = _large_noise_grids(h, w, np.random.default_rng(seed))
+    img = None
+    for octave, grid in zip(range(3, 8), grids):
+        up = _bilinear_rows(grid, h, w, rows) * (0.5 ** (8 - octave))
+        img = up if img is None else img + up
+    return img
+
+
+def scene_large_compose(noise: np.ndarray, h: int, w: int, seed: int = 0,
+                        rows: slice = slice(None)) -> np.ndarray:
+    """Rows ``rows`` of ``procedural_scene_large`` from the same rows of its
+    value noise already divided by the whole noise's maximum."""
     rng = np.random.default_rng(seed)
-    img = np.zeros((h, w, 3), np.float32)
-    for octave in range(3, 8):
-        gh, gw = h // 2 ** octave + 2, w // 2 ** octave + 2
-        grid = rng.uniform(size=(gh, gw, 3)).astype(np.float32)
-        ys = np.linspace(0, gh - 1.001, h)
-        xs = np.linspace(0, gw - 1.001, w)
-        y0 = ys.astype(int)
-        x0 = xs.astype(int)
-        fy = (ys - y0)[:, None, None].astype(np.float32)
-        fx = (xs - x0)[None, :, None].astype(np.float32)
-        up = (
-            grid[y0][:, x0] * (1 - fy) * (1 - fx)
-            + grid[y0][:, x0 + 1] * (1 - fy) * fx
-            + grid[y0 + 1][:, x0] * fy * (1 - fx)
-            + grid[y0 + 1][:, x0 + 1] * fy * fx
-        )
-        img += up * (0.5 ** (8 - octave))
-    img /= img.max()
+    _large_noise_grids(h, w, rng)          # the draws before the palettes
+
     # posterized cell fields: hard high-contrast edges at every cell
     # boundary (corners at triple points; 16-64 px cells survive the SIFT
     # working resize).  TWO independent posterize fields combine into
@@ -174,22 +193,12 @@ def procedural_scene_large(h: int, w: int, seed: int = 0) -> np.ndarray:
     # 37%-overlap pair with 1024 keypoints each).
     def _poster(octaves, seed_off):
         r2 = np.random.default_rng(seed + seed_off)
-        cell = np.zeros((h, w), np.float32)
+        cell = None
         for octave in octaves:
             gh, gw = h // 2 ** octave + 2, w // 2 ** octave + 2
             grid = r2.uniform(size=(gh, gw)).astype(np.float32)
-            ys = np.linspace(0, gh - 1.001, h)
-            xs = np.linspace(0, gw - 1.001, w)
-            y0 = ys.astype(int)
-            x0 = xs.astype(int)
-            fy = (ys - y0)[:, None].astype(np.float32)
-            fx = (xs - x0)[None, :].astype(np.float32)
-            cell += (
-                grid[y0][:, x0] * (1 - fy) * (1 - fx)
-                + grid[y0][:, x0 + 1] * (1 - fy) * fx
-                + grid[y0 + 1][:, x0] * fy * (1 - fx)
-                + grid[y0 + 1][:, x0 + 1] * fy * fx
-            )
+            up = _bilinear_rows(grid, h, w, rows)
+            cell = up if cell is None else cell + up
         return cell
 
     # cell octaves start at 5 (32 px): octave-4 cells made the texture SO
@@ -201,7 +210,22 @@ def procedural_scene_large(h: int, w: int, seed: int = 0) -> np.ndarray:
     pal_b = rng.uniform(-0.5, 0.5, size=(32, 3)).astype(np.float32)
     ia = np.clip((_poster((6, 7), 1000) * 16).astype(np.int32), 0, 31)
     ib = np.clip((_poster((7, 8), 2000) * 16).astype(np.int32), 0, 31)
-    return np.clip(0.2 * img + 0.8 * (pal_a[ia] + pal_b[ib] * 0.7), 0, 1)
+    return np.clip(0.2 * noise + 0.8 * (pal_a[ia] + pal_b[ib] * 0.7), 0, 1)
+
+
+def procedural_scene_large(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Corner-rich texture that scales to equirect-panorama sizes
+    (procedural_scene's per-shape full-canvas masks are O(shapes * h * w)
+    — hopeless at 500 Mpx).  Fully vectorized: multi-octave value noise
+    for low-frequency content + a POSTERIZED independent noise field
+    (random 24-color palette, hard edges at every cell boundary — corner
+    features at triple points for SIFT), float32 in [0,1].  Every pixel
+    depends on its row's draws only, and on the noise's maximum: row
+    blocks can be made apart (``scene_large_noise``,
+    ``scene_large_compose``) and give the same pixels."""
+    img = scene_large_noise(h, w, seed)
+    img /= img.max()
+    return scene_large_compose(img, h, w, seed)
 
 
 def strip_views(n: int, w: int, h: int, overlap: float = 0.4,
@@ -303,3 +327,78 @@ def gt_rot_pair_homography(f: float, R_i: np.ndarray, R_j: np.ndarray):
     K = np.array([[f, 0, 0], [0, f, 0], [0, 0, 1.0]])
     H = K @ R_i.T @ R_j @ np.linalg.inv(K)
     return H / H[2, 2]
+
+
+# ---------------------------------------------------------------------------
+# gigapixel-scale data in row / view blocks over worker processes
+# ---------------------------------------------------------------------------
+
+_ROW_BLOCK = 256
+_VIEW_BLOCK = 4
+
+
+def _noise_block(h, w, seed, r0, r1, noise_path):
+    mm = np.load(noise_path, mmap_mode="r+")
+    mm[r0:r1] = scene_large_noise(h, w, seed, slice(r0, r1))
+    peak = mm[r0:r1].max()
+    mm.flush()
+    return peak
+
+
+def _compose_block(h, w, seed, r0, r1, noise_path, peak, out_path):
+    noise = np.load(noise_path, mmap_mode="r")[r0:r1] / peak
+    rows = scene_large_compose(noise, h, w, seed, slice(r0, r1))
+    out = np.load(out_path, mmap_mode="r+")
+    out[r0:r1] = (rows if out.dtype == np.float32
+                  else np.round(rows * 255).astype(np.uint8))
+    out.flush()
+
+
+def _render_block(scene_path, rotations, out_w, out_h, f, k0, out_path):
+    scene = np.load(scene_path, mmap_mode="r")
+    out = np.load(out_path, mmap_mode="r+")
+    out[k0:k0 + len(rotations)] = render_views_sphere(scene, rotations, out_w,
+                                                      out_h, f)
+    out.flush()
+
+
+def _pool(workers: int):
+    import multiprocessing as mp
+
+    return mp.get_context("spawn").Pool(workers)
+
+
+def procedural_scene_large_to(path: str, h: int, w: int, seed: int = 0,
+                              dtype=np.float32, workers: int = 1):
+    """Write ``procedural_scene_large(h, w, seed)`` to the .npy file
+    ``path``, as float32 or (``dtype=np.uint8``) as
+    ``np.round(scene * 255)``, built in blocks of rows over ``workers``
+    spawned processes; the pixels are those of the one-call function.  The
+    unnormalized noise passes through a scratch file beside ``path``."""
+    noise_path = f"{path}.noise.npy"
+    np.lib.format.open_memmap(noise_path, "w+", np.float32, (h, w, 3))
+    np.lib.format.open_memmap(path, "w+", dtype, (h, w, 3))
+    blocks = [(r, min(r + _ROW_BLOCK, h)) for r in range(0, h, _ROW_BLOCK)]
+    try:
+        with _pool(workers) as pool:
+            peak = max(pool.starmap(_noise_block, [
+                (h, w, seed, r0, r1, noise_path) for r0, r1 in blocks]))
+            pool.starmap(_compose_block, [
+                (h, w, seed, r0, r1, noise_path, peak, path)
+                for r0, r1 in blocks])
+    finally:
+        os.remove(noise_path)
+
+
+def render_views_sphere_to(path: str, scene_path: str, rotations: np.ndarray,
+                           out_w: int, out_h: int, f: float,
+                           workers: int = 1):
+    """Write ``render_views_sphere`` of the .npy scene at ``scene_path`` (u8
+    views) to the .npy file ``path``, in blocks of views over ``workers``
+    spawned processes; the pixels are those of the one-call function."""
+    n = rotations.shape[0]
+    np.lib.format.open_memmap(path, "w+", np.uint8, (n, out_h, out_w, 3))
+    with _pool(workers) as pool:
+        pool.starmap(_render_block, [
+            (scene_path, rotations[k:k + _VIEW_BLOCK], out_w, out_h, f, k,
+             path) for k in range(0, n, _VIEW_BLOCK)])

@@ -59,9 +59,11 @@ def reset():
         _totals.clear()
 
 
-def report() -> str:
+def report(stage_totals: dict[str, tuple[int, float]] | None = None) -> str:
+    """The totals (``stage_totals``, or this process's), longest first."""
     lines = []
-    by_time = sorted(totals().items(), key=lambda kv: -kv[1][1])
+    by_time = sorted((totals() if stage_totals is None else stage_totals
+                      ).items(), key=lambda kv: -kv[1][1])
     for label, (cnt, secs) in by_time:
         lines.append(f"{label}: {cnt} calls, {secs:.3f} s total")
     return "\n".join(lines)

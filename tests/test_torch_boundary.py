@@ -83,11 +83,14 @@ def test_kernel_wrappers_never_take_plain_path_on_card():
     "camera/banded.py", "camera/estimator.py", "io/image.py",
     "stitch/stitcher.py", "ops/windows.py", "stitch/warp.py",
     "stitch/cylstitcher.py", "stitch/multiband.py", "sift/brief.py",
-    "cli.py", "io/artifacts.py", "utils/debug.py", "utils/draw.py"])
+    "cli.py", "io/artifacts.py", "utils/debug.py", "utils/draw.py",
+    "bench/__init__.py", "bench/__main__.py", "bench/headline.py",
+    "bench/roofline.py", "bench/kernel_check.py", "bench/giga.py",
+    "bench/scaling.py"])
 def test_slice_modules_are_checked(module):
     """The camera stack, the image IO, the stitchers, the multiband blender,
-    BRIEF, the CLI, the stage artifacts and the debug tools are among the
-    files the import check above parses."""
+    BRIEF, the CLI, the stage artifacts, the debug tools and the benches are
+    among the files the import check above parses."""
     assert ROOT / "openpano_torch" / module in _port_files()
 
 
@@ -96,6 +99,8 @@ def _no_card_entries():
     import numpy as np
 
     from openpano_torch import Config, cli
+    from openpano_torch.bench import __main__ as bench_main
+    from openpano_torch.bench import giga, kernel_check, roofline, scaling
     from openpano_torch.camera.estimator import estimate_cameras
     from openpano_torch.stitch.multiband import blend_multiband_host_stream
     from openpano_torch.stitch.render import blend_linear_host_stream, \
@@ -120,18 +125,30 @@ def _no_card_entries():
             u8, plan, ordered=False, groups=2),
         "blend_multiband_host_stream": lambda: blend_multiband_host_stream(
             u8, plan, 2, groups=2),
+        "bench": lambda: bench_main.main([]),
+        "bench_kernel_check": lambda: kernel_check.check(),
+        "bench_link": lambda: roofline.measure_link(),
+        "giga_trans": lambda: giga.main(["--images", "2"]),
+        "giga_rot": lambda: giga.main(["--mode", "rot", "--grid", "2", "1"]),
+        "giga_trans2d": lambda: giga.main(["--mode", "trans2d", "--grid",
+                                           "2", "1"]),
+        "scaling": lambda: scaling.main(["--devices", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["stitch_hetero", "estimate_cameras_on_card",
                                    "cli_main", "host_stream_stitch",
                                    "blend_linear_host_stream",
-                                   "blend_multiband_host_stream"])
+                                   "blend_multiband_host_stream", "bench",
+                                   "bench_kernel_check", "bench_link",
+                                   "giga_trans", "giga_rot", "giga_trans2d",
+                                   "scaling"])
 def test_entry_points_raise_without_card(monkeypatch, entry):
     """stitch_hetero, the bundle adjustment on the card (BA_ON_HOST=False),
     the CLI without --device, the stitch whose host-stream trigger fires
-    (OPENPANO_HOST_BLEND=1) and the host-stream blends refuse to fall back
-    to the CPU."""
+    (OPENPANO_HOST_BLEND=1), the host-stream blends and the benches
+    (``python -m openpano_torch.bench``, the kernel check, the link timing,
+    each giga mode, the scaling bench) refuse to fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("OPENPANO_HOST_BLEND", "1")
     with pytest.raises(RuntimeError, match="no CUDA device"):

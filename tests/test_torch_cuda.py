@@ -440,3 +440,38 @@ def test_transport_features_and_stack_on_card(card):
     imgs.start_background()
     stack = imgs.get()
     assert torch.equal(stack, torch.from_numpy(u8).to(card).float() / 255.0)
+
+
+def test_kernel_check_on_card(card):
+    """openpano_torch.bench.kernel_check on the JAX tool's case: K1, K2 and
+    the resize within 1e-4 of their plain versions, each kernel launched
+    once."""
+    from openpano_torch.bench import kernel_check
+
+    got = kernel_check.check(device=card)
+    assert got["ok"], got
+    assert got["launches"] == {"orientation_histogram": 1,
+                               "descriptor_histogram": 1}
+
+
+def test_link_rates_positive(card):
+    from openpano_torch.bench import roofline
+
+    rates = roofline.measure_link(card)
+    assert rates["h2d_bytes_per_s"] > 0 and rates["d2h_bytes_per_s"] > 0
+
+
+def test_bench_small_passes_gates(card, monkeypatch):
+    """The headline bench at BENCH_SMALL=1 (13 views of 640x480): bench.py's
+    gates hold (run raises otherwise), the kernel check passes and every
+    timed run launches K1 and K2 once per feature batch."""
+    from openpano_torch.bench import headline
+
+    monkeypatch.setenv("BENCH_SMALL", "1")
+    out = headline.run()
+    extra = out["extra"]
+    assert extra["images"] == 13 and extra["kernel_parity"]["ok"]
+    assert extra["mean_reproj_err_px"] < headline.REPROJ_LIMIT_PX
+    assert extra["multiband"]["ncc_vs_linear"] > headline.MB_NCC_LIMIT
+    assert all(run == {"orientation_histogram": 4, "descriptor_histogram": 4}
+               for run in extra["launches"])
