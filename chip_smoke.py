@@ -111,7 +111,27 @@ Phases, each fatal on failure:
      printed; every adjacent pair connected, each pairwise offset within 6
      px of the truth, the canvas width within 5% of the true extent, K1 and
      K2 launched once per feature batch (125 times); the chain's drift, the
-     canvas height and the valid share printed.
+     canvas height and the valid share printed;
+  17. tools: (a) ``bench.profile_sift`` on the first 12 headline views: the
+     substage times printed, the whole chunk launching K1 and K2 once
+     each (orientation K1 only, descriptor K2 only), a batch of 2 or 4
+     once each, and a ``torch.profiler`` trace of a feature batch with its
+     device-busy share (printed, not gated); (b) ``bench.feature_batch``
+     in this process at OPENPANO_FEATURE_BATCH 1, 4 and 8 over the 38
+     headline views: the features bit for bit the same at every size, K1
+     and K2 launched ceil(38 / B) times; (c) the in-memory linear blend
+     of the main path's plan with OPENPANO_BLEND_GRID=1 against the exact
+     map: the largest and the mean absolute difference where both are
+     valid under ``render.GRID_MAX_ABS`` / ``GRID_MEAN_ABS`` (the CPU
+     test's measurement), valid masks agreeing on >= 99.9%, and the
+     times (printed, not gated) of that blend with and without the grid
+     map and of the headline's all-pairs match at
+     OPENPANO_MATCH_PRECISION=high and unset; (d)
+     ``bench.run_test``: the port's CLI in a subprocess on the card, in
+     CYLINDER and ESTIMATE_CAMERA mode, each final size within 0.8 of its
+     golden; (e) ``bench.ba_sweep`` r2's first schedule on the small set,
+     and ``bench.comm_volume.measure`` at one NCCL rank: no collective byte
+     in the feature compute, the closed-form bytes per LM iteration.
 Every phase before 14 that stitches a uint8 stack without a mesh runs the
 transport too (phase 10's without the chroma stream).  Each phase prints
 its seconds.  The second-to-last line is the kernel report as JSON; the
@@ -137,7 +157,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from openpano_torch import Config, stitch_images  # noqa: E402
 from openpano_torch import _build, cli, native  # noqa: E402
-from openpano_torch.bench import giga, headline  # noqa: E402
+from openpano_torch.bench import ba_sweep, comm_volume, giga, headline, \
+    profile_sift, run_test  # noqa: E402
+from openpano_torch.bench import feature_batch as batch_sweep  # noqa: E402
 from openpano_torch.bench.headline import camera_error, canvas_ncc, \
     expected_canvas, headline_inputs  # noqa: E402
 from openpano_torch.camera import bundle_adjuster as tba  # noqa: E402
@@ -145,6 +167,7 @@ from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
 from openpano_torch.camera.rotation import rodrigues, \
     rotation_to_angle  # noqa: E402
 from openpano_torch.camera.estimator import estimate_cameras  # noqa: E402
+from openpano_torch.match.matcher import match_all_pairs  # noqa: E402
 from openpano_torch.ops import windows  # noqa: E402
 from openpano_torch.io import wirecodec  # noqa: E402
 from openpano_torch.io.image import read_img_u8, write_rgb  # noqa: E402
@@ -158,8 +181,8 @@ from openpano_torch.stitch.multiband import _roi_sizes, blend_multiband, \
     blend_multiband_host_stream  # noqa: E402
 from openpano_torch.stitch.render import blend_linear, \
     blend_linear_host_stream, plan_render  # noqa: E402
-from openpano_torch.stitch.stitcherbase import FEATURE_BATCH, \
-    compute_features, grey_u8  # noqa: E402
+from openpano_torch.stitch.stitcherbase import compute_features, \
+    feature_batch, grey_u8  # noqa: E402
 from openpano_torch.stitch.warp import make_projector  # noqa: E402
 from openpano_torch.synth import procedural_scene_large, render_views, \
     strip_views  # noqa: E402
@@ -420,7 +443,7 @@ def capture_path_inputs(u8: np.ndarray, cfg: Config) -> dict:
             return _fn(*args)
         setattr(windows, attr, rec)
     try:
-        compute_features(torch.from_numpy(u8[:FEATURE_BATCH]).cuda(), cfg)
+        compute_features(torch.from_numpy(u8[:feature_batch()]).cuda(), cfg)
     finally:
         for attr, fn in saved.items():
             setattr(windows, attr, fn)
@@ -1085,7 +1108,7 @@ def mesh_check(runs: dict, one: dict) -> dict:
     (R) of the main path's, whose bundle adjustment ran on the host, (d)
     one band upload and (a)'s canvas bit for bit.  Returns (a)'s
     launches."""
-    want = -(-len(runs["a"][2]["cams"].focal) // FEATURE_BATCH)
+    want = -(-len(runs["a"][2]["cams"].focal) // feature_batch())
     for k, base in (("a", "main"), ("b", "multiband"), ("c", "CYLINDER"),
                     ("d", "main")):
         mesh_gates(f"mesh ({k})", runs[k][:2], runs[k][3], one[base], want)
@@ -1167,7 +1190,7 @@ def transport_run(label: str, u8: np.ndarray, truth: dict, perm: np.ndarray,
     check(valid.mean() > 0.3 and reproj < REPROJ_LIMIT_PX,
           f"{label}: the main path's gates")
     for name, _, _, _, _ in KERNELS[:2]:
-        check(launches[name] == -(-N_VIEWS // FEATURE_BATCH),
+        check(launches[name] == -(-N_VIEWS // feature_batch()),
               f"{label}: {name} launched {launches[name]} times")
     return canvas, valid, info, launches, stats
 
@@ -1391,6 +1414,135 @@ def uav_phase() -> dict:
     return launches
 
 
+def knob_ms(name: str, value: str, fn) -> tuple[float, float]:
+    """(ms with ``name`` unset, ms with it set to ``value``) of ``fn``: the
+    better of two ``median_ms`` of each, taken in turns unset, set, set,
+    unset."""
+    check(name not in os.environ, f"{name} is set already")
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        if on:
+            os.environ[name] = value
+        try:
+            times[on].append(median_ms(fn, 3))
+        finally:
+            os.environ.pop(name, None)
+    return min(times[False]), min(times[True])
+
+
+def tools_phase(u8: np.ndarray, lin_plan) -> dict:
+    """Phase 17: the tools (module docstring), each gate raising.  Returns
+    the K1 / K2 launches of (a) and (b), counts read around each."""
+    out = {}
+    # (a) the feature substages, the steady state and one trace
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = profile_sift.run(views=u8[:12], reps=3,
+                                 trace_path=os.path.join(tmp, "trace.json"))
+    out["profile"] = read_counts()
+    prof, steady, calls, trace = lines
+    print("profile_sift: " + ", ".join(
+        f"{k[:-3]} {prof[k]:.2f} ms" for k in prof if k.endswith("_ms")))
+    print(f"profile_feature_stage: {steady['ms_per_img']:.2f} ms a view one "
+          f"call each (trials {[round(t, 1) for t in steady['trials_ms']]} "
+          f"ms for {steady['views']}); batches: "
+          f"{json.dumps(steady['batch_ms_per_img'])} ms a view")
+    print(f"feature trace: {trace['wall_ms']:.2f} ms wall for "
+          f"{trace['views']} views, device busy {trace['device_busy_ms']} ms "
+          f"(idle share {trace['idle_share']}), {trace['device_events']} "
+          f"device events; top: {json.dumps(trace['top_device_events'][:5])}")
+    print(f"profile launches per call: {json.dumps(prof['launches_per_call'])}"
+          f"; batches {json.dumps(calls['launches_per_call'])}")
+    per = prof["launches_per_call"]
+    want = {"full_chunk": (1, 1), "orientation": (1, 0),
+            "descriptor": (0, 1), "resize": (0, 0), "pyramid": (0, 0),
+            "extrema": (0, 0)}
+    for stage, (k1, k2) in want.items():
+        check((per[stage]["orientation_histogram"],
+               per[stage]["descriptor_histogram"]) == (k1, k2),
+              f"profile_sift: {stage} launched {per[stage]}")
+    for B, c in calls["launches_per_call"].items():
+        check(c == {"orientation_histogram": 1, "descriptor_histogram": 1},
+              f"profile_sift: a batch of {B} launched {c}")
+    # (b) the feature batch in this process
+    reset_counts()
+    lines, ok = batch_sweep.run(u8=u8, sizes=(1, 4, 8), trials=1,
+                                cfg=Config(**HEADLINE))
+    out["batch_sweep"] = read_counts()
+    for line in lines:
+        print(json.dumps(line))
+    check(ok, "feature batch: a size failed, launched other than ceil(n/B) "
+              "times or changed the features")
+    want = sum(-(-N_VIEWS // B) for B in (1, 4, 8))
+    check(all(out["batch_sweep"][n] == want for n, *_ in KERNELS),
+          f"feature batch: {out['batch_sweep']}, not {want} each")
+    # (c) the grid map against the exact one on the main path's plan
+    src = torch.from_numpy(u8).cuda().to(torch.float32) / 255.0
+    exact = blend_linear(src, lin_plan, False).cpu().numpy()
+    os.environ["OPENPANO_BLEND_GRID"] = "1"
+    try:
+        grid = blend_linear(src, lin_plan, False).cpu().numpy()
+    finally:
+        del os.environ["OPENPANO_BLEND_GRID"]
+    vg, ve = grid[..., 0] >= 0, exact[..., 0] >= 0
+    d = np.abs(grid - exact)[vg & ve]
+    agree = float((vg == ve).mean())
+    print(f"grid map on the main plan ({lin_plan.out_w}x{lin_plan.out_h}): "
+          f"max abs diff {d.max():.4e}, mean {d.mean():.4e} (bounds "
+          f"{render.GRID_MAX_ABS}, {render.GRID_MEAN_ABS}), valid agree "
+          f"{agree:.6f}")
+    check(d.max() < render.GRID_MAX_ABS and d.mean() < render.GRID_MEAN_ABS,
+          "grid map: the canvas moved past the CPU test's bound")
+    check(agree >= 0.999, "grid map: valid masks disagree")
+    # the two compute-saving knobs' times: the blend of the main plan with
+    # and without the grid map, the headline's all-pairs match at
+    # MATCH_PRECISION=high (TF32) and unset (full f32)
+    blend_off, blend_on = knob_ms("OPENPANO_BLEND_GRID", "1",
+                                  lambda: blend_linear(src, lin_plan, False))
+    del src
+    cfg = Config(**HEADLINE)
+    f = compute_features(torch.from_numpy(u8).cuda(), cfg)
+    run = lambda: match_all_pairs(f.desc, f.valid, cfg)
+    full = run()
+    os.environ["OPENPANO_MATCH_PRECISION"] = "high"
+    try:
+        high = run()
+    finally:
+        del os.environ["OPENPANO_MATCH_PRECISION"]
+    pairs = lambda m: set(map(tuple, torch.cat(
+        [torch.nonzero(m.valid)[:, :1], m.idx[m.valid]], 1).tolist()))
+    moved = len(pairs(full) ^ pairs(high))
+    match_off, match_on = knob_ms("OPENPANO_MATCH_PRECISION", "high", run)
+    print(f"knob times (ms, best of 2 medians in turns unset, set, set, "
+          f"unset): blend exact {blend_off:.3f} grid {blend_on:.3f}; "
+          f"all-pairs match full f32 {match_off:.3f} high {match_on:.3f} "
+          f"({moved} of {len(pairs(full))} matches differ)")
+    del f, full, high
+    # (d) the CLI harness on the card
+    for line in run_test.run():
+        print(json.dumps(line))
+        check(line["ok"], f"run_test {line['mode']}: {line['reason']}")
+    # (e) one BA schedule on the small set, and the collective bytes
+    (line,) = ba_sweep.run(sweep="r2", small=True, picks=["0"])
+    print(json.dumps(line))
+    check(line["lm_iters"] > 0 and line["reproj_px"] < REPROJ_LIMIT_PX,
+          f"ba_sweep: {line}")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/store", 1, 0, device="cuda")
+        try:
+            cv = comm_volume.measure(make_mesh(), comm_volume.views(8, 320,
+                                                                    240))
+        finally:
+            dist.destroy_process_group()
+    print(f"comm_volume at one NCCL rank: {json.dumps(cv)}")
+    check(cv["feature"]["compute_bytes"] == 0,
+          "comm_volume: the feature compute moved collective bytes")
+    check(cv["dist_ba"]["collective_bytes_per_device_per_iteration"]
+          == comm_volume.ba_iteration_bytes(),
+          f"comm_volume: LM iteration bytes {cv['dist_ba']}")
+    return out
+
+
 @contextlib.contextmanager
 def phase(label: str):
     t0 = time.perf_counter()
@@ -1447,7 +1599,7 @@ def main(kernels_only: bool = False) -> int:
         trans_launches = trans_path(strip, xy)
     with phase("7 main path"):
         linear = main_path(u8, truth, perm)
-        launches = linear[3]
+        launches, lin_plan = linear[3], linear[2]["plan"]
     with phase("8 multiband path"):
         multiband = multiband_path(u8, truth, perm, linear[:3])
         mb_launches, mb_plan = multiband[3], multiband[2]["plan"]
@@ -1468,9 +1620,12 @@ def main(kernels_only: bool = False) -> int:
         transport_launches = transport_phase(u8, truth, perm, ref)
     with phase("15 headline bench"):
         bench_launches = bench_phase((u8, truth, perm))
-    del u8, strip
+    del strip
     with phase("16 UAV strip"):
         uav_launches = uav_phase()
+    with phase("17 tools"):
+        tools_launches = tools_phase(u8, lin_plan)
+    del u8
     for entry in report:
         k = entry["name"]
         entry.update(launches=launches[k], trans_launches=trans_launches[k],
@@ -1481,13 +1636,17 @@ def main(kernels_only: bool = False) -> int:
                      mesh_launches=mesh_launches[k],
                      transport_launches=transport_launches[k],
                      bench_launches=bench_launches[k],
-                     uav_launches=uav_launches[k])
+                     uav_launches=uav_launches[k],
+                     profile_launches=tools_launches["profile"][k],
+                     batch_sweep_launches=tools_launches["batch_sweep"][k])
     print(f"total: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": report}))
-    # the cards the run used: those on which it allocated memory
+    # the cards the run used: those on which it allocated memory (the
+    # cumulative count, which resetting the peak statistics leaves alone)
     used = [i for i in range(torch.cuda.device_count())
-            if torch.cuda.memory_stats(i).get("allocated_bytes.all.peak", 0)]
+            if torch.cuda.memory_stats(i).get("allocated_bytes.all.allocated",
+                                              0)]
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": len(used)}}))
     return 0

@@ -10,12 +10,18 @@ and of the tools it and the repository's records are built from.
 - ``giga`` (``python -m openpano_torch.bench.giga``): the large-canvas
   benches (a UAV strip, a rotational gigapixel grid, a 2-D survey);
 - ``scaling`` (``python -m openpano_torch.bench.scaling``): the sharded
-  stitch at several world sizes.
+  stitch at several world sizes;
+- the tools: ``profile_sift`` (the feature stage's substages, steady state
+  and a profiler trace), ``feature_batch`` (the ``OPENPANO_FEATURE_BATCH``
+  sweep), ``ba_sweep`` (the bundle adjustment's schedules and variants),
+  ``comm_volume`` (the collective bytes per stage and rank) and
+  ``run_test`` (the CLI harness), each ``python -m
+  openpano_torch.bench.<name>``.
 
 Each runs on the card unless the caller asks for the CPU (``device="cpu"``,
-``--device cpu``), and raises without a card otherwise.  Each prints one
-JSON line with the keys of its JAX counterpart, plus the card's name and
-power limit, peak memory and every timed run's wall.
+``--device cpu``), and raises without a card otherwise.  Each prints JSON
+lines with the keys of its JAX counterpart, plus the card's name and power
+limit and every timed run's wall.
 """
 
 from __future__ import annotations

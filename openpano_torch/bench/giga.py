@@ -50,7 +50,7 @@ from .. import stitch_images, synth
 from ..config import Config
 from ..ops import windows
 from ..stitch import stitcher
-from ..stitch.stitcherbase import FEATURE_BATCH
+from ..stitch.stitcherbase import feature_batch
 from ..utils import prng, timer
 from . import device_record, host_memory, sync
 
@@ -193,7 +193,7 @@ def _timed(views, cfg: Config, key, dev, mesh, info=None):
         "peak_device_gib": (round(torch.cuda.max_memory_allocated(dev)
                                   / 2**30, 3) if dev.type == "cuda" else None),
         "launches": launches,
-        "feature_batches": -(-len(views) // FEATURE_BATCH),
+        "feature_batches": -(-len(views) // feature_batch()),
     }
 
 

@@ -39,7 +39,7 @@ from ..io import wirecodec
 from ..ops import windows
 from ..stitch.render import plan_render
 from ..stitch.stitcher import resolve_device
-from ..stitch.stitcherbase import FEATURE_BATCH
+from ..stitch.stitcherbase import feature_batch
 from ..synth import gt_pair_homography, procedural_scene_large, render_views
 from ..utils import prng, timer
 from . import device_record, kernel_check, roofline, sync
@@ -213,7 +213,7 @@ def run(workload: Workload | None = None, device=None, warm_runs: int = 3,
                      else {"SIFT_WORKING_SIZE": w.working_size}))
     key = prng.key((0, 1), dev)                      # PRNGKey(1)
     u8, truth, perm = inputs if inputs is not None else headline_inputs(w)
-    batches = -(-n // FEATURE_BATCH)
+    batches = -(-n // feature_batch())
 
     _, _, cold_s = _stitch(u8, cfg, key, dev)
     runs = []

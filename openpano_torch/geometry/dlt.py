@@ -13,7 +13,11 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.imgproc import _fma
 from ..utils.precision import full_f32
+
+# XLA:CPU's dot runs its contraction in blocks of this many rows.
+_XLA_K_BLOCK = 256
 
 
 def _chol_solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -48,13 +52,56 @@ def _chol_solve_small(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, dim=-1)
 
 
-def _weighted_lstsq(A, b, w, nparam: int):
-    """argmin_x ||w * (Ax - b)||^2 for [..., R, nparam] systems.  The normal
-    equations run in full f32: TF32 would move the fit by ~1e-3."""
-    Aw = A * w[..., None]
+def _xla_cpu_rows_product(a, b):
+    """sum over r of a[..., r, :, None] * b[..., r, None, :], rounded as
+    XLA:CPU's jitted ``einsum("...ri,...rj->...ij")``: each block of 256
+    rows accumulated from zero by one f32 fused multiply-add a row, the
+    block sums then added in order.  ``b`` [..., R] (no last axis) gives the
+    matrix-vector product, which XLA:CPU accumulates over all rows in one
+    block.  Measured bit-equal for R up to 256 and for the multiples of 256
+    up to 2048 (the refit of the default cap of 1024 matches); another
+    length over 256 is blocked otherwise there.  The blocks accumulate side
+    by side (zero rows pad the last: adding an exact 0 to an accumulator
+    that started at +0 leaves it as it is)."""
+    vec = b.dim() == a.dim() - 1
+    if vec:
+        b = b[..., None]
+    R = a.shape[-2]
+    blk = R if vec else min(R, _XLA_K_BLOCK)
+    nb = -(-R // blk)
+
+    def blocks(x):             # [..., R, k] -> [nb, ..., blk, k]
+        x = torch.nn.functional.pad(x, (0, 0, 0, nb * blk - R))
+        x = x.unflatten(-2, (nb, blk))
+        return x.movedim(-3, 0)
+
+    a, b = blocks(a), blocks(b)
+    acc = a.new_zeros(a.shape[:-2] + a.shape[-1:] + b.shape[-1:])
+    for r in range(blk):
+        acc = _fma(a[..., r, :, None], b[..., r, None, :], acc)
+    out = acc[0]
+    for k in range(1, nb):
+        out = out + acc[k]
+    return out[..., 0] if vec else out
+
+
+def _normal_equations(Aw, A, b):
+    """(Aw^T A, Aw^T b).  On the card a full-f32 matrix product (TF32 would
+    move the fit by ~1e-3); for f32 on the CPU the sums of XLA:CPU's jitted
+    einsum (``_xla_cpu_rows_product``), so that the refits do not depend on
+    which kernel the CPU's BLAS dispatches (its rounding differs between
+    AVX2 and AVX-512 hosts).  f64 (the CYLINDER perspective correction)
+    keeps the f64 matrix product: ``_fma`` rounds to f32."""
+    if A.device.type == "cpu" and A.dtype == torch.float32:
+        return _xla_cpu_rows_product(Aw, A), _xla_cpu_rows_product(Aw, b)
     with full_f32():
-        AtA = torch.matmul(Aw.transpose(-1, -2), A)
-        Atb = torch.matmul(Aw.transpose(-1, -2), b[..., None])[..., 0]
+        return (torch.matmul(Aw.transpose(-1, -2), A),
+                torch.matmul(Aw.transpose(-1, -2), b[..., None])[..., 0])
+
+
+def _weighted_lstsq(A, b, w, nparam: int):
+    """argmin_x ||w * (Ax - b)||^2 for [..., R, nparam] systems."""
+    AtA, Atb = _normal_equations(A * w[..., None], A, b)
     AtA = AtA + 1e-9 * torch.eye(nparam, dtype=A.dtype, device=A.device)
     return _chol_solve_small(AtA, Atb)
 

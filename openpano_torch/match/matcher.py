@@ -15,10 +15,21 @@ serves both directions.  The product only selects candidates: the ratio
 tests recompute the selected distances exactly.  Shapes are fixed:
 descriptors are [K,128] zero-padded with validity masks, matches are index
 pairs padded to MAX_MATCHES_PER_PAIR, and a batch of pairs runs at once.
+
+``OPENPANO_MATCH_PRECISION`` sets the precision of that product's cross
+term on the card: unset or ``highest`` is full f32 (the port's default),
+``high`` and ``medium`` select torch's float32 matmul precision of that
+name, which on Hopper is TF32.  TF32 keeps 10 mantissa bits, coarser than
+the bf16x3 passes of the TPU's ``high`` that the JAX package verified as
+its default, so the port does not follow that default: TF32 can move a
+near-tie 2-NN selection.  On the CPU every value gives the full-f32
+product, as every precision does on XLA:CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import NamedTuple
 
 import torch
@@ -39,13 +50,40 @@ class MatchResult(NamedTuple):
     count: torch.Tensor  # [P] int64 — number of valid matches
 
 
+_PRECISIONS = ("highest", "high", "medium")
+
+
+def match_precision() -> str:
+    """``OPENPANO_MATCH_PRECISION`` (``highest`` unset), checked."""
+    prec = os.environ.get("OPENPANO_MATCH_PRECISION", "highest").lower()
+    if prec not in _PRECISIONS:
+        raise ValueError(f"OPENPANO_MATCH_PRECISION={prec!r}: not one of "
+                         f"{_PRECISIONS}")
+    return prec
+
+
+@contextlib.contextmanager
+def _matmul_precision(prec: str):
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(prec)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
 def _sq_dist_matrix(da, db, valid_a, valid_b) -> torch.Tensor:
     """[P, Ki, Kj] squared euclidean distances via ||a||^2+||b||^2-2ab.
     Invalid (padding) rows/columns are pushed to ~1e19 through the norm
-    terms.  Full f32: TF32 would move candidates across the ratio test."""
+    terms.  Full f32 unless ``match_precision()`` asks for less on the card
+    (module docstring): TF32 can move candidates across the ratio test."""
     na = torch.where(valid_a, (da * da).sum(-1), _PAD_DIST)
     nb = torch.where(valid_b, (db * db).sum(-1), _PAD_DIST)
-    with full_f32():
+    prec = match_precision()
+    scope = (_matmul_precision(prec)
+             if da.device.type == "cuda" and prec != "highest"
+             else full_f32())
+    with scope:
         cross = torch.matmul(da, db.transpose(-1, -2))
     d2 = na[:, :, None] + nb[:, None, :] - 2.0 * cross
     return torch.clamp(d2, min=0.0)

@@ -36,16 +36,16 @@ def octave_caps(cfg: Config, octave_index: int) -> tuple[int, int, int]:
     )
 
 
-def detect_and_describe(imgs: torch.Tensor, orig_wh: torch.Tensor,
-                        cfg: Config) -> Features:
-    """imgs: [B, H, W] grey or [B, H, W, 3] RGB float32 working images
-    (already at SIFT working size); orig_wh: [B, 2] original (w, h) for the
-    coordinate output.  Returns Features [B, MAX_KP_PER_IMAGE, ...]."""
-    grey = rgb2grey(imgs) if imgs.dim() == 4 else imgs
-    octaves = build_scale_space(grey, cfg)
-    B = grey.shape[0]
+def keypoint_candidates(octaves, cfg: Config):
+    """The extrema of every octave under its caps, compacted into one
+    MAX_KP_PER_IMAGE-slot set per image, and the octaves' mag / ort planes
+    stacked (smaller octaves zero-padded to octave 0's shape).  Returns
+    (raw keypoints, their octave (w, h) [B, K, 2], mag [B, O*S, H0, W0],
+    ort)."""
+    B = octaves[0].mag.shape[0]
     S = cfg.NUM_SCALE
     H0, W0 = octaves[0].mag.shape[-2], octaves[0].mag.shape[-1]
+    dev = octaves[0].mag.device
 
     raws, whs, mags, orts = [], [], [], []
     for oi, octave in enumerate(octaves):
@@ -54,7 +54,7 @@ def detect_and_describe(imgs: torch.Tensor, orig_wh: torch.Tensor,
         oh, ow = octave.mag.shape[-2], octave.mag.shape[-1]
         raws.append(raw._replace(s=raw.s + oi * S))  # octave folds into scale
         whs.append(torch.tensor([ow, oh], dtype=torch.float32,
-                                device=grey.device).expand(B, caps[1], 2))
+                                device=dev).expand(B, caps[1], 2))
         mags.append(F.pad(octave.mag, (0, W0 - ow, 0, H0 - oh)))
         orts.append(F.pad(octave.ort, (0, W0 - ow, 0, H0 - oh)))
     mag_all = torch.cat(mags, dim=1)                 # [B, O*S, H0, W0]
@@ -69,11 +69,13 @@ def detect_and_describe(imgs: torch.Tensor, orig_wh: torch.Tensor,
     raw_c = RawKeypoints(*(a.gather(1, keep) for a in raw_all))
     raw_c = raw_c._replace(valid=rvalid)
     wh_c = wh_all.gather(1, keep[..., None].expand(-1, -1, 2))
+    return raw_c, wh_c, mag_all, ort_all
 
-    oriented, wh_o = orient_keypoints(raw_c, mag_all, ort_all, cfg, cap=K,
-                                      wh=wh_c)
-    desc = describe_keypoints(oriented, mag_all, ort_all, cfg, wh=wh_o)
 
+def keypoint_features(oriented, desc: torch.Tensor,
+                      orig_wh: torch.Tensor) -> Features:
+    """Features of oriented keypoints and their descriptors, at
+    half-shifted original-image coordinates; zero where invalid."""
     kvalid = oriented.valid
     pos = torch.stack(
         [(oriented.real_x - 0.5) * orig_wh[:, 0:1],
@@ -85,6 +87,20 @@ def detect_and_describe(imgs: torch.Tensor, orig_wh: torch.Tensor,
         desc=torch.where(kvalid[..., None], desc, 0.0),
         valid=kvalid,
     )
+
+
+def detect_and_describe(imgs: torch.Tensor, orig_wh: torch.Tensor,
+                        cfg: Config) -> Features:
+    """imgs: [B, H, W] grey or [B, H, W, 3] RGB float32 working images
+    (already at SIFT working size); orig_wh: [B, 2] original (w, h) for the
+    coordinate output.  Returns Features [B, MAX_KP_PER_IMAGE, ...]."""
+    grey = rgb2grey(imgs) if imgs.dim() == 4 else imgs
+    octaves = build_scale_space(grey, cfg)
+    raw_c, wh_c, mag_all, ort_all = keypoint_candidates(octaves, cfg)
+    oriented, wh_o = orient_keypoints(raw_c, mag_all, ort_all, cfg,
+                                      cap=cfg.MAX_KP_PER_IMAGE, wh=wh_c)
+    desc = describe_keypoints(oriented, mag_all, ort_all, cfg, wh=wh_o)
+    return keypoint_features(oriented, desc, orig_wh)
 
 
 def detect_and_describe_batch(imgs: torch.Tensor, orig_whs: torch.Tensor,

@@ -34,6 +34,13 @@ the download codec's planes (``io.wirecodec.CodedFetch``, under
 (``OPENPANO_PACKED_GATHER=1`` in the stitcher) samples an R|G|B|valid int32
 image instead of the x-paired f32 one: exact for u8 sources up to the
 order of the lerp, so within one u8 level.
+
+Knobs, read at each call: ``OPENPANO_TILE_H`` / ``OPENPANO_TILE_W`` (256
+each, as in the JAX package) size the tile jobs of ``item_slabs=False``;
+``OPENPANO_BLEND_GRID=1`` (off by default) replaces the exact inverse map
+of every linear blend (in memory, streamed, host stream, sharded) with
+``_inverse_map_grid``: exact at the corners of a 16 x 16 px grid, bilinear
+in between.
 """
 
 from __future__ import annotations
@@ -49,6 +56,29 @@ from ..ops.imgproc import INVALID, bilinear_prologue
 from .projection import PROJECTIONS
 
 BLEND_GROUPS = 4
+_GS = 16   # the grid map's cell, in canvas px
+# the grid map's canvas against the exact map's where both are valid, as
+# tests/test_torch_tools.py measured it on a 5-view spherical plan (focal
+# 558 px): largest 0.313 (a hard texture edge), mean 7.6e-4
+GRID_MAX_ABS = 0.35
+GRID_MEAN_ABS = 1e-3
+
+
+def tile_size() -> tuple[int, int]:
+    """(TH, TW) of the tile jobs: ``OPENPANO_TILE_H`` / ``OPENPANO_TILE_W``,
+    256 each unset.  A value below 1 raises."""
+    out = []
+    for name in ("OPENPANO_TILE_H", "OPENPANO_TILE_W"):
+        v = int(os.environ.get(name, "256"))
+        if v < 1:
+            raise ValueError(f"{name}={v}: must be at least 1")
+        out.append(v)
+    return tuple(out)
+
+
+def blend_grid() -> bool:
+    """``OPENPANO_BLEND_GRID=1``: the linear blends take the grid map."""
+    return os.environ.get("OPENPANO_BLEND_GRID", "0") == "1"
 
 
 class RenderPlan(NamedTuple):
@@ -189,12 +219,14 @@ def _poly_rect_intersects(poly: np.ndarray, x0, y0, x1, y1,
     return not sep.any()
 
 
-def _tile_jobs(plan: RenderPlan, groups: int, TH: int = 256, TW: int = 256,
-               item_slabs: bool = True, exact: bool = False):
+def _tile_jobs(plan: RenderPlan, groups: int, TH: int | None = None,
+               TW: int | None = None, item_slabs: bool = True,
+               exact: bool = False):
     """Jobs partitioned into ``groups`` column bands by x-origin (a band-g
     job never writes columns < g*SW).  ``item_slabs=True``: one job per
     render item sized to the largest item bbox (TH/TW ignored); otherwise
-    each item's bbox is covered by [TH, TW] tiles its hull touches.
+    each item's bbox is covered by [TH, TW] tiles its hull touches (TH / TW
+    unset: ``tile_size()``).
 
     ``exact=True`` (the banded host-stream blends) keeps G == groups even
     when bands come out empty and forces SW >= TW, so that a band-g job
@@ -206,6 +238,9 @@ def _tile_jobs(plan: RenderPlan, groups: int, TH: int = 256, TW: int = 256,
     as the JAX package's ``_tile_jobs``."""
     it = plan.items
     r = it[:, 1:5]
+    dh, dw = tile_size()
+    TH = dh if TH is None else TH
+    TW = dw if TW is None else TW
     if item_slabs:
         TH = -(-int(np.maximum(r[:, 3] - r[:, 1], 1).max()) // 8) * 8
         TW = -(-int(np.maximum(r[:, 2] - r[:, 0], 1).max()) // 128) * 128
@@ -311,6 +346,53 @@ def _sample_bilinear_packed(img_i32: torch.Tensor, y: torch.Tensor,
     return color, ok
 
 
+def _inverse_map(proj2homo, hinv, wh, cx, cy):
+    """(sx, sy, z) [len(cy), len(cx)]: the canvas points (cx, cy) in
+    projection units through proj2homo, the 3x3 inverse map and the
+    perspective divide, half-shifted to source pixels."""
+    cgrid = torch.stack(torch.broadcast_tensors(cx[None, :], cy[:, None]), -1)
+    hm = proj2homo(cgrid)
+    # the 3x3 inverse map as explicit f32 products (no tensor cores, hence
+    # no TF32 on the card)
+    ret = [hm[..., 0] * hinv[d, 0] + hm[..., 1] * hinv[d, 1]
+           + hm[..., 2] * hinv[d, 2] for d in range(3)]
+    z = ret[2]
+    zsafe = torch.where(torch.abs(z) > 1e-20, z, 1e-20)
+    return ret[0] / zsafe + wh[0] * 0.5, ret[1] / zsafe + wh[1] * 0.5, z
+
+
+def _inverse_map_grid(proj2homo, hinv, wh, ox: int, oy: int, res, proj_min,
+                      TH: int, TW: int):
+    """(sx, sy, z) [TH, TW] of the job at canvas (ox, oy), the JAX
+    package's ``_inverse_map_grid``: the exact map at the corners of
+    ``_GS`` px cells, bilinear in between (an error of about GS^2 / (8 f)
+    px at focal f).  z only feeds the z > 0 test, and interpolated across a
+    sign change it would let garbage coordinates through, so each cell
+    takes the least z of its corners.  A side that is no multiple of
+    ``_GS`` (the JAX package's reshape refuses it) is covered by whole
+    cells and cut."""
+    dev = hinv.device
+    ngy, ngx = -(-TH // _GS) + 1, -(-TW // _GS) + 1
+    gx = ox + torch.arange(ngx, dtype=torch.float32, device=dev) * _GS
+    gy = oy + torch.arange(ngy, dtype=torch.float32, device=dev) * _GS
+    sxg, syg, zg = _inverse_map(proj2homo, hinv, wh,
+                                gx * res[0] + proj_min[0],
+                                gy * res[1] + proj_min[1])
+    f = torch.arange(_GS, dtype=torch.float32, device=dev) / _GS
+    fy, fx = f[:, None, None, None], f[None, :, None, None]
+
+    def up(g):
+        v = (g[:-1, :-1] * (1 - fy) * (1 - fx) + g[:-1, 1:] * (1 - fy) * fx
+             + g[1:, :-1] * fy * (1 - fx) + g[1:, 1:] * fy * fx)
+        return v.permute(2, 0, 3, 1).reshape((ngy - 1) * _GS,
+                                             (ngx - 1) * _GS)[:TH, :TW]
+
+    zc = torch.minimum(torch.minimum(zg[:-1, :-1], zg[:-1, 1:]),
+                       torch.minimum(zg[1:, :-1], zg[1:, 1:]))
+    z = zc.repeat_interleave(_GS, 0).repeat_interleave(_GS, 1)[:TH, :TW]
+    return up(sxg), up(syg), z
+
+
 def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
               imgs6: torch.Tensor, hinvs: torch.Tensor, whs: torch.Tensor,
               jobs, plan: RenderPlan, ordered: bool, TH: int, TW: int,
@@ -327,24 +409,19 @@ def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
     proj_min, res = f32(plan.proj_min), f32(plan.resolution)
     t_h = torch.arange(TH, dtype=torch.float32, device=dev)
     t_w = torch.arange(TW, dtype=torch.float32, device=dev)
+    grid = blend_grid()
     idx, rng, org = jobs[0], jobs[1], jobs[2]
     for k in range(len(idx)):
         i, (ox, oy) = int(idx[k]), (int(org[k, 0]), int(org[k, 1]))
         bx0, by0, bx1, by1 = (float(v) for v in rng[k])
         hinv, wh = hinvs[i], whs[i]
-        cx = (ox + t_w) * res[0] + proj_min[0]
-        cy = (oy + t_h) * res[1] + proj_min[1]
-        cgrid = torch.stack(torch.broadcast_tensors(cx[None, :],
-                                                    cy[:, None]), -1)
-        hm = proj2homo(cgrid)
-        # the 3x3 inverse map as explicit f32 products (no tensor cores,
-        # hence no TF32 on the card)
-        ret = [hm[..., 0] * hinv[d, 0] + hm[..., 1] * hinv[d, 1]
-               + hm[..., 2] * hinv[d, 2] for d in range(3)]
-        z = ret[2]
-        zsafe = torch.where(torch.abs(z) > 1e-20, z, 1e-20)
-        sx = ret[0] / zsafe + wh[0] * 0.5
-        sy = ret[1] / zsafe + wh[1] * 0.5
+        if grid:
+            sx, sy, z = _inverse_map_grid(proj2homo, hinv, wh, ox, oy, res,
+                                          proj_min, TH, TW)
+        else:
+            sx, sy, z = _inverse_map(proj2homo, hinv, wh,
+                                     (ox + t_w) * res[0] + proj_min[0],
+                                     (oy + t_h) * res[1] + proj_min[1])
         sample = (_sample_bilinear_packed if imgs6.dim() == 3
                   else _sample_bilinear_paired)
         color, ok = sample(imgs6[i], sy, sx)

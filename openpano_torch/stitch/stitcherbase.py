@@ -12,8 +12,12 @@ Two grey routes, as in the JAX package, and they give different keypoints:
 - float input resizes RGB to the working size and greys inside the detector
   (``jnp.mean`` over channels).
 
-Images run through the detector in batches of ``FEATURE_BATCH``: the scale
-space of one batch is the live set.  A stack in host memory uploads one batch
+Images run through the detector in batches of ``feature_batch()`` views
+(``OPENPANO_FEATURE_BATCH``, read at each call; 4 by default, the port's
+measured choice: the JAX package's default of 1 came from a TPU sweep and
+does not carry over): the scale space of one batch is the live set.
+Features are per view, so every batch size gives the same features bit for
+bit; K1 and K2 launch once per batch.  A stack in host memory uploads one batch
 at a time: the stitcher keeps image sets too large for the device there
 (``HostImages``).
 
@@ -42,7 +46,17 @@ from ..ops.imgproc import resize, working_size
 from ..sift.descriptor import Features
 from ..sift.detector import detect_and_describe
 
-FEATURE_BATCH = 4
+FEATURE_BATCH = 4   # the default of ``feature_batch()``
+
+
+def feature_batch() -> int:
+    """Views per detector batch: ``OPENPANO_FEATURE_BATCH``, read at call
+    time so that one process can sweep it; ``FEATURE_BATCH`` (4) unset.
+    A value below 1 raises."""
+    b = int(os.environ.get("OPENPANO_FEATURE_BATCH", str(FEATURE_BATCH)))
+    if b < 1:
+        raise ValueError(f"OPENPANO_FEATURE_BATCH={b}: must be at least 1")
+    return b
 
 
 def grey_u8(imgs: torch.Tensor) -> torch.Tensor:
@@ -87,9 +101,10 @@ def compute_features(imgs, cfg: Config, dev=None) -> Features:
     Returns batched Features with half-shifted original-image coordinates;
     raises when an image has no feature (stitcherbase.cc:20-21)."""
     n, h, w = imgs.shape[0], imgs.shape[1], imgs.shape[2]
+    B = feature_batch()
     parts = []
-    for lo in range(0, n, FEATURE_BATCH):
-        batch = imgs[lo : lo + FEATURE_BATCH]
+    for lo in range(0, n, B):
+        batch = imgs[lo : lo + B]
         if isinstance(batch, np.ndarray):
             batch = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
         parts.append(_batch_features(batch, cfg, w, h))
@@ -108,22 +123,23 @@ def _check_counts(feats: Features):
 def feature_shards(n: int, nd: int) -> np.ndarray:
     """[nd, L] image indices per rank, -1 for padding: the images that the
     JAX package's device g takes (``compute_features_sharded`` there).  The
-    batch is padded to a mesh multiple; a batch of at most
-    ``FEATURE_BATCH * nd`` splits evenly, a larger one runs in chunks of
-    that size, rank g taking rows [g * FEATURE_BATCH, (g + 1) *
-    FEATURE_BATCH) of each (the last chunk padded).  The JAX package fills
+    batch is padded to a mesh multiple; with B = ``feature_batch()``, a
+    batch of at most ``B * nd`` splits evenly, a larger one runs in chunks
+    of that size, rank g taking rows [g * B, (g + 1) * B) of each (the last
+    chunk padded).  The JAX package fills
     the padding with copies of an image and drops their features; here no
     rank computes it."""
     total = n + (-n % nd)
     idx = np.concatenate([np.arange(n), np.full(total - n, -1)])
-    chunk = FEATURE_BATCH * nd
+    B = feature_batch()
+    chunk = B * nd
     if total <= chunk:
         return idx.reshape(nd, -1)
     parts = []
     for lo in range(0, total, chunk):
         c = idx[lo : lo + chunk]
         c = np.concatenate([c, np.full(chunk - len(c), -1)])
-        parts.append(c.reshape(nd, FEATURE_BATCH))
+        parts.append(c.reshape(nd, B))
     return np.concatenate(parts, 1)
 
 
@@ -248,13 +264,13 @@ def grey_chunk() -> int:
 def _grey_features(grey8: np.ndarray, res: np.ndarray, cfg: Config,
                    dev: torch.device):
     """Upload the grey and residual planes in chunks of ``grey_chunk()``
-    views and run the detector over them in batches of ``FEATURE_BATCH``.
+    views and run the detector over them in batches of ``feature_batch()``.
     Returns ([(grey rows, residual rows)] per chunk on ``dev``, Features);
     raises when an image has no feature."""
     from ..io import wirecodec
 
     n, h, w = grey8.shape
-    CH = grey_chunk()
+    CH, B = grey_chunk(), feature_batch()
     grey_parts, feat_parts, pending = [], [], []
     for lo in range(0, n, CH):
         hi = min(lo + CH, n)
@@ -262,9 +278,9 @@ def _grey_features(grey8: np.ndarray, res: np.ndarray, cfg: Config,
         dr = wirecodec.upload_2bit_rows(res[lo:hi].reshape(-1, w), dev)
         grey_parts.append((dg, dr))
         pending.extend(_grey_sum_to_f32(dg, dr, hi - lo, h, w).unbind(0))
-        while len(pending) >= FEATURE_BATCH or (hi == n and pending):
-            batch = torch.stack(pending[:FEATURE_BATCH])
-            del pending[:FEATURE_BATCH]
+        while len(pending) >= B or (hi == n and pending):
+            batch = torch.stack(pending[:B])
+            del pending[:B]
             feat_parts.append(_batch_features(batch, cfg, w, h))
     feats = Features(*(torch.cat(f, dim=0) for f in zip(*feat_parts)))
     _check_counts(feats)
@@ -279,7 +295,7 @@ def upload_and_compute_features(host_u8: np.ndarray, cfg: Config,
     host_u8: [N, H, W, 3] uint8 in host memory.  The grey and residual
     planes upload in chunks of ``grey_chunk()`` views (4-bit codec and
     2-bit planes) and become the exact f32 grey; the detector runs on them
-    in the batches of ``FEATURE_BATCH`` views that :func:`compute_features`
+    in the batches of ``feature_batch()`` views that :func:`compute_features`
     takes, so the features equal its features bit for bit.  With
     ``rgb_stream`` the chroma planes are encoded in a ``BackgroundUpload``
     thread (2-bit codec) whose copies wait for ``start_background``;

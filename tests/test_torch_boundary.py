@@ -86,11 +86,12 @@ def test_kernel_wrappers_never_take_plain_path_on_card():
     "cli.py", "io/artifacts.py", "utils/debug.py", "utils/draw.py",
     "bench/__init__.py", "bench/__main__.py", "bench/headline.py",
     "bench/roofline.py", "bench/kernel_check.py", "bench/giga.py",
-    "bench/scaling.py"])
+    "bench/scaling.py", "bench/profile_sift.py", "bench/feature_batch.py",
+    "bench/ba_sweep.py", "bench/comm_volume.py", "bench/run_test.py"])
 def test_slice_modules_are_checked(module):
     """The camera stack, the image IO, the stitchers, the multiband blender,
-    BRIEF, the CLI, the stage artifacts, the debug tools and the benches are
-    among the files the import check above parses."""
+    BRIEF, the CLI, the stage artifacts, the debug tools, the benches and
+    the tools are among the files the import check above parses."""
     assert ROOT / "openpano_torch" / module in _port_files()
 
 
@@ -100,7 +101,8 @@ def _no_card_entries():
 
     from openpano_torch import Config, cli
     from openpano_torch.bench import __main__ as bench_main
-    from openpano_torch.bench import giga, kernel_check, roofline, scaling
+    from openpano_torch.bench import ba_sweep, comm_volume, feature_batch, \
+        giga, kernel_check, profile_sift, roofline, run_test, scaling
     from openpano_torch.camera.estimator import estimate_cameras
     from openpano_torch.stitch.multiband import blend_multiband_host_stream
     from openpano_torch.stitch.render import blend_linear_host_stream, \
@@ -133,6 +135,12 @@ def _no_card_entries():
         "giga_trans2d": lambda: giga.main(["--mode", "trans2d", "--grid",
                                            "2", "1"]),
         "scaling": lambda: scaling.main(["--devices", "1"]),
+        "profile_sift": lambda: profile_sift.main([]),
+        "feature_batch": lambda: feature_batch.main(["1"]),
+        "ba_sweep_r2": lambda: ba_sweep.main(["--small", "0"]),
+        "ba_sweep_r5": lambda: ba_sweep.main(["--sweep", "r5", "fpat3"]),
+        "comm_volume": lambda: comm_volume.main(["--devices", "1"]),
+        "run_test": lambda: run_test.main(["--modes", "camera"]),
     }
 
 
@@ -142,13 +150,17 @@ def _no_card_entries():
                                    "blend_multiband_host_stream", "bench",
                                    "bench_kernel_check", "bench_link",
                                    "giga_trans", "giga_rot", "giga_trans2d",
-                                   "scaling"])
+                                   "scaling", "profile_sift", "feature_batch",
+                                   "ba_sweep_r2", "ba_sweep_r5",
+                                   "comm_volume", "run_test"])
 def test_entry_points_raise_without_card(monkeypatch, entry):
     """stitch_hetero, the bundle adjustment on the card (BA_ON_HOST=False),
     the CLI without --device, the stitch whose host-stream trigger fires
     (OPENPANO_HOST_BLEND=1), the host-stream blends and the benches
     (``python -m openpano_torch.bench``, the kernel check, the link timing,
-    each giga mode, the scaling bench) refuse to fall back to the CPU."""
+    each giga mode, the scaling bench) and the tools (the feature profile,
+    the feature-batch sweep, both BA sweeps, the collective volume, the CLI
+    harness) refuse to fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("OPENPANO_HOST_BLEND", "1")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -475,3 +475,94 @@ def test_bench_small_passes_gates(card, monkeypatch):
     assert extra["multiband"]["ncc_vs_linear"] > headline.MB_NCC_LIMIT
     assert all(run == {"orientation_histogram": 4, "descriptor_histogram": 4}
                for run in extra["launches"])
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 8])
+def test_feature_batch_gives_the_same_features_on_card(card, B,
+                                                       monkeypatch):
+    """OPENPANO_FEATURE_BATCH on the card: the features of 6 views of
+    640x480 equal those of the default batch (4) bit for bit, and K1 and
+    K2 launch once per batch."""
+    from openpano_torch import Config
+    from openpano_torch.bench.profile_sift import feature_views
+    from openpano_torch.stitch.stitcherbase import compute_features
+
+    u8 = torch.from_numpy(feature_views(6, 640, 480)).to(card)
+    cfg = Config(MAX_KP_PER_IMAGE=1024)
+    monkeypatch.delenv("OPENPANO_FEATURE_BATCH", raising=False)
+    want = compute_features(u8, cfg)
+    monkeypatch.setenv("OPENPANO_FEATURE_BATCH", str(B))
+    k1 = windows.orientation_histogram.launches
+    k2 = windows.descriptor_histogram.launches
+    got = compute_features(u8, cfg)
+    assert windows.orientation_histogram.launches - k1 == -(-6 // B)
+    assert windows.descriptor_histogram.launches - k2 == -(-6 // B)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_match_precision_high_on_card(card, monkeypatch, capsys):
+    """OPENPANO_MATCH_PRECISION=high (TF32 for the distance matrix's cross
+    term) against unset (full f32) on the headline's first two views:
+    prints how many 2-NN selections and accepted matches move; gates only
+    that both run and that the default is full f32 again afterwards."""
+    from openpano_torch.bench.headline import config, headline_inputs
+    from openpano_torch.match import matcher
+    from openpano_torch.stitch.stitcherbase import compute_features
+
+    cfg = config()
+    u8 = headline_inputs()[0][:2]
+    f = compute_features(torch.from_numpy(u8).to(card), cfg)
+    d, v = f.desc, f.valid
+
+    def run():
+        d2 = matcher._sq_dist_matrix(d[:1], d[1:], v[:1], v[1:])
+        return matcher._top2(d2), matcher.match_pair(d[0], v[0], d[1], v[1],
+                                                     cfg)
+
+    monkeypatch.delenv("OPENPANO_MATCH_PRECISION", raising=False)
+    (f1, f2), full = run()
+    monkeypatch.setenv("OPENPANO_MATCH_PRECISION", "high")
+    (h1, h2), high = run()
+    assert torch.get_float32_matmul_precision() == "highest"
+    live = v[0]
+    moved_1nn = int(((f1[0] != h1[0]) & live).sum())
+    moved_2nn = int(((f2[0] != h2[0]) & live).sum())
+    pairs = lambda m: {tuple(p) for p in m.idx[0][m.valid[0]].tolist()}
+    a, b = pairs(full), pairs(high)
+    with capsys.disabled():
+        print(f"\nmatch precision high vs full f32: {int(live.sum())} "
+              f"keypoints, 1-NN moved {moved_1nn}, 2nd-NN moved {moved_2nn}; "
+              f"matches {len(a)} / {len(b)}, {len(a ^ b)} differ")
+    assert len(a) > 100 and len(b) > 100
+
+
+def test_grid_map_within_its_bound_on_card(card, monkeypatch):
+    """OPENPANO_BLEND_GRID=1 on the card, the CPU test's 5-view spherical
+    plan: against the exact map within ``render.GRID_MAX_ABS`` /
+    ``GRID_MEAN_ABS``, and within 1e-4 of the CPU's grid-mode blend."""
+    from openpano_torch.stitch import render
+    from openpano_torch.synth import procedural_scene_large, render_views
+
+    n = 5
+    views, truth = render_views(procedural_scene_large(600, 2400, seed=0), n,
+                                out_w=320, out_h=240, hfov_deg=32,
+                                overlap=0.5, seed=2)
+    f = truth["focal_px"]
+    homos = [np.array([[np.cos(t), 0, np.sin(t)], [0, 1, 0],
+                       [-np.sin(t), 0, np.cos(t)]]).T
+             @ np.linalg.inv(np.diag([f, f, 1.0])) for t in truth["yaws"]]
+    plan = render.plan_render(np.stack(homos),
+                              np.repeat([[320.0, 240.0]], n, 0), n // 2,
+                              "spherical", 8000)
+    src = torch.from_numpy(views.astype(np.float32))
+    exact = render.blend_linear(src.to(card), plan, False).cpu().numpy()
+    monkeypatch.setenv("OPENPANO_BLEND_GRID", "1")
+    grid = render.blend_linear(src.to(card), plan, False).cpu().numpy()
+    cpu = render.blend_linear(src, plan, False).numpy()
+    vg, ve, vc = (c[..., 0] >= 0 for c in (grid, exact, cpu))
+    d = np.abs(grid - exact)[vg & ve]
+    assert d.max() < render.GRID_MAX_ABS and d.mean() < render.GRID_MEAN_ABS
+    assert (vg != ve).mean() < 1e-3
+    assert (vg == vc).mean() > 0.9999
+    assert np.abs(grid - cpu)[vg & vc].max() < 1e-4
