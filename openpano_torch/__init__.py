@@ -16,10 +16,14 @@ the command line, with the reference's debug modes.  ``mesh=`` shards a
 stitch over ``torch.distributed`` ranks (``parallel/``).
 """
 
+import itertools
+
 from .config import DEFAULT, Config
 
 __version__ = "0.1.0"
 __all__ = ["Config", "DEFAULT", "stitch_images", "stitch_files", "__version__"]
+
+_calls = itertools.count()   # stitch_images calls in this process
 
 
 def stitch_images(imgs, cfg: Config | None = None, key=None,
@@ -41,17 +45,25 @@ def stitch_images(imgs, cfg: Config | None = None, key=None,
     modes over ``torch.distributed`` ranks (``stitch.stitcher.stitch``).
     In CYLINDER mode the mesh is dropped and the cylinder stitcher runs on
     ``device``, as the JAX package's ``stitch_images`` does; call
-    ``stitch_cylinder(mesh=...)`` to shard that mode."""
+    ``stitch_cylinder(mesh=...)`` to shard that mode.
+
+    Under ``torch.profiler`` the call is the range ``openpano:stitch``
+    (its argument the call's sequence number in the process), and every
+    stage and substage an ``openpano:`` range inside it
+    (``utils.timer.span``)."""
+    from .utils.timer import span
+
     cfg = cfg or DEFAULT
-    if cfg.CYLINDER:
-        from .stitch.cylstitcher import stitch_cylinder
+    with span("stitch", str(next(_calls))):
+        if cfg.CYLINDER:
+            from .stitch.cylstitcher import stitch_cylinder
 
-        return stitch_cylinder(imgs, cfg, key, output=output, device=device,
-                               info_out=info_out)
-    from .stitch.stitcher import stitch
+            return stitch_cylinder(imgs, cfg, key, output=output,
+                                   device=device, info_out=info_out)
+        from .stitch.stitcher import stitch
 
-    return stitch(imgs, cfg, key, output=output, device=device,
-                  info_out=info_out, mesh=mesh)
+        return stitch(imgs, cfg, key, output=output, device=device,
+                      info_out=info_out, mesh=mesh)
 
 
 def stitch_files(paths, cfg: Config | None = None, out: str | None = None,

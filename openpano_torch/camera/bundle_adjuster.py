@@ -39,6 +39,7 @@ import torch
 
 from ..utils.debug import NumericsError, assert_finite, \
     numeric_checks_enabled
+from ..utils.timer import span
 from .rotation import drodrigues, rodrigues
 
 LM_MAX_ITER = 100       # incremental_bundle_adjuster.cc:24
@@ -318,37 +319,39 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
     resid, wm = _pairs_residuals(params, prob)
     best_err = cost(resid, wm)
     while itr < max_iter and nr_nd <= patience:
-        cur = best_flat.reshape(n_cam, 6)
-        if banded:
-            from .banded import assemble_banded, solve_block_cyclic
+        with span("cameras.lm_iter"):
+            cur = best_flat.reshape(n_cam, 6)
+            if banded:
+                from .banded import assemble_banded, solve_block_cyclic
 
-            Bp, bp, F, Tc = _pairs_ne_blocks(cur, resid, prob, upd)
-            D, U, C, rhs = _reduced(mesh,
-                                    *assemble_banded(Bp, bp, F, Tc, n_cam))
-            check(normal_equations_D=D, normal_equations_U=U,
-                  normal_equations_C=C, normal_equations_rhs=rhs)
-            dvec = (damp_unit * lam).reshape(n_cam, 6)
-            D = D + torch.eye(6, dtype=dt, device=dev)[None] * dvec[:, :, None]
-            delta = solve_block_cyclic(D, U, C, rhs).reshape(-1)
-        else:
-            JtJ, Jtb = _reduced(mesh, *_pairs_normal_equations(
-                cur, resid, prob, n_cam, upd))
-            check(normal_equations_JtJ=JtJ, normal_equations_Jtb=Jtb)
-            delta = solve_sym_scaled_chol(
-                JtJ + torch.diag(damp_unit * lam), Jtb)
-        check(step=delta)
-        new_flat = best_flat - delta * upd_flat
-        check(trial_params=new_flat)
-        resid, wm = _pairs_residuals(new_flat.reshape(n_cam, 6), prob)
-        new_err = cost(resid, wm)
-        improved = new_err < best_err - max(1e-3, rel_tol * best_err)
-        if improved:
-            best_flat, best_err, nr_nd = new_flat, new_err, 0
-        else:
-            nr_nd += 1
-        if adaptive:
-            lam = min(max(lam / 3.0 if improved else lam * 4.0, 1e-4), 1e8)
-        itr += 1
+                Bp, bp, F, Tc = _pairs_ne_blocks(cur, resid, prob, upd)
+                D, U, C, rhs = _reduced(mesh,
+                                        *assemble_banded(Bp, bp, F, Tc, n_cam))
+                check(normal_equations_D=D, normal_equations_U=U,
+                      normal_equations_C=C, normal_equations_rhs=rhs)
+                dvec = (damp_unit * lam).reshape(n_cam, 6)
+                D = D + (torch.eye(6, dtype=dt, device=dev)[None]
+                         * dvec[:, :, None])
+                delta = solve_block_cyclic(D, U, C, rhs).reshape(-1)
+            else:
+                JtJ, Jtb = _reduced(mesh, *_pairs_normal_equations(
+                    cur, resid, prob, n_cam, upd))
+                check(normal_equations_JtJ=JtJ, normal_equations_Jtb=Jtb)
+                delta = solve_sym_scaled_chol(
+                    JtJ + torch.diag(damp_unit * lam), Jtb)
+            check(step=delta)
+            new_flat = best_flat - delta * upd_flat
+            check(trial_params=new_flat)
+            resid, wm = _pairs_residuals(new_flat.reshape(n_cam, 6), prob)
+            new_err = cost(resid, wm)
+            improved = new_err < best_err - max(1e-3, rel_tol * best_err)
+            if improved:
+                best_flat, best_err, nr_nd = new_flat, new_err, 0
+            else:
+                nr_nd += 1
+            if adaptive:
+                lam = min(max(lam / 3.0 if improved else lam * 4.0, 1e-4), 1e8)
+            itr += 1
     return best_flat.reshape(n_cam, 6), itr
 
 

@@ -21,6 +21,7 @@ from ..config import Config
 from ..match.matcher import MatchResult
 from ..ops.compact import compact_indices
 from ..utils import prng
+from ..utils.timer import span
 from .dlt import normalized_transform
 from .homography import (
     health,
@@ -76,54 +77,61 @@ def estimate_transform(match: MatchResult, pos1, valid1, pos2, valid2, wh1,
     nh = cfg.RANSAC_ITERATIONS
     # uniform rows of the prefix-packed matches; f64 like the JAX package,
     # whose default float is 64-bit
-    u = prng.uniform_f64(keys, (nh, ns))                       # [P, nh, ns]
+    with span("ransac.draws"):
+        u = prng.uniform_f64(keys, (nh, ns))                   # [P, nh, ns]
     hi = torch.clamp(n_match, min=1).to(torch.float64)[:, None, None]
     top = torch.clamp(n_match - 1, min=0)[:, None, None]
     # the match count is not clipped to M (compact_indices), so a draw can
     # pass the buffer; the JAX package's gather clamps it to row M-1
     sel = torch.minimum((u * hi).to(torch.int64), top).clamp_(max=M - 1)
 
-    w_sel = torch.ones(sel.shape, dtype=p1.dtype, device=dev)
-    H_hyp = normalized_transform(_take(p1, sel), _take(p2, sel), w_sel,
-                                 affine)                        # [P, nh, 3, 3]
-    healthy = health(H_hyp)                                     # :79
+    with span("ransac.fit"):
+        w_sel = torch.ones(sel.shape, dtype=p1.dtype, device=dev)
+        H_hyp = normalized_transform(_take(p1, sel), _take(p2, sel), w_sel,
+                                     affine)                    # [P, nh, 3, 3]
+        healthy = health(H_hyp)                                 # :79
 
-    proj, _ = trans2d(H_hyp, p2[:, None])                       # [P, nh, M, 2]
-    err2 = ((proj - p1[:, None]) ** 2).sum(-1)
-    inl = (err2 < inlier_dist) & mvalid[:, None, :]             # :132-148
-    n_inl = inl.sum(-1)
-    score = torch.where(healthy, n_inl, -1)
-    best = torch.argmax(score, dim=-1)                          # first max
-    rows = torch.arange(P, device=dev)
-    inlier_mask = inl[rows, best]
-    n_inlier = n_inl[rows, best]
+    with span("ransac.score"):
+        proj, _ = trans2d(H_hyp, p2[:, None])                   # [P, nh, M, 2]
+        err2 = ((proj - p1[:, None]) ** 2).sum(-1)
+        inl = (err2 < inlier_dist) & mvalid[:, None, :]         # :132-148
+        n_inl = inl.sum(-1)
+        score = torch.where(healthy, n_inl, -1)
+        best = torch.argmax(score, dim=-1)                      # first max
+        rows = torch.arange(P, device=dev)
+        inlier_mask = inl[rows, best]
+        n_inlier = n_inl[rows, best]
 
     # refit on all inliers (transform_estimate.cc:85-86,179)
-    H = normalized_transform(p1, p2, inlier_mask.to(p1.dtype), affine)
+    with span("ransac.refit"):
+        H = normalized_transform(p1, p2, inlier_mask.to(p1.dtype), affine)
 
     # acceptance gates (fill_inliers_to_matchinfo, :150-218)
-    Hinv, inv_ok = homo_inverse(H)
-    in_ov1_m = overlap_mask_in1(H, Hinv, wh1, wh2, p1) & mvalid
-    in_ov2_m = overlap_mask_in1(Hinv, H, wh2, wh1, p2) & mvalid
-    in_ov1_k = overlap_mask_in1(H, Hinv, wh1, wh2, pos1) & valid1
-    in_ov2_k = overlap_mask_in1(Hinv, H, wh2, wh1, pos2) & valid2
-    fn = n_inlier.to(torch.float32)
-    ratio = lambda m: fn / torch.clamp(m.sum(-1), min=1)
-    r1m, r2m = ratio(in_ov1_m), ratio(in_ov2_m)
-    r1p, r2p = ratio(in_ov1_k), ratio(in_ov2_k)
-    conf = (r1p + r2p) * 0.5
+    with span("ransac.gates"):
+        Hinv, inv_ok = homo_inverse(H)
+        in_ov1_m = overlap_mask_in1(H, Hinv, wh1, wh2, p1) & mvalid
+        in_ov2_m = overlap_mask_in1(Hinv, H, wh2, wh1, p2) & mvalid
+        in_ov1_k = overlap_mask_in1(H, Hinv, wh1, wh2, pos1) & valid1
+        in_ov2_k = overlap_mask_in1(Hinv, H, wh2, wh1, pos2) & valid2
+        fn = n_inlier.to(torch.float32)
+        ratio = lambda m: fn / torch.clamp(m.sum(-1), min=1)
+        r1m, r2m = ratio(in_ov1_m), ratio(in_ov2_m)
+        r1p, r2p = ratio(in_ov1_k), ratio(in_ov2_k)
+        conf = (r1p + r2p) * 0.5
 
-    ok = (r1m >= cfg.INLIER_IN_MATCH_RATIO) & (r2m >= cfg.INLIER_IN_MATCH_RATIO)
-    ok &= (r1p >= 0.01) & (r1p <= 1.0) & (r2p >= 0.01) & (r2p <= 1.0)
-    ok &= conf >= cfg.INLIER_IN_POINTS_RATIO
-    # overlap area in image-2 coords vs the larger image (:204-208)
-    area2 = wh2[:, 0] * wh2[:, 1]
-    area1 = wh1[:, 0] * wh1[:, 1]
-    area = overlap_area_fraction(H, wh2, wh1, cfg.OVERLAP_AREA_GRID) * area2
-    ok &= area / torch.maximum(area1, area2) >= 0.15
+        ok = ((r1m >= cfg.INLIER_IN_MATCH_RATIO)
+              & (r2m >= cfg.INLIER_IN_MATCH_RATIO))
+        ok &= (r1p >= 0.01) & (r1p <= 1.0) & (r2p >= 0.01) & (r2p <= 1.0)
+        ok &= conf >= cfg.INLIER_IN_POINTS_RATIO
+        # overlap area in image-2 coords vs the larger image (:204-208)
+        area2 = wh2[:, 0] * wh2[:, 1]
+        area1 = wh1[:, 0] * wh1[:, 1]
+        area = overlap_area_fraction(H, wh2, wh1,
+                                     cfg.OVERLAP_AREA_GRID) * area2
+        ok &= area / torch.maximum(area1, area2) >= 0.15
 
-    success = ((n_match >= ESTIMATE_MIN_NR_MATCH) & (n_match >= ns)
-               & (n_inlier >= ESTIMATE_MIN_NR_MATCH) & inv_ok & ok)
+        success = ((n_match >= ESTIMATE_MIN_NR_MATCH) & (n_match >= ns)
+                   & (n_inlier >= ESTIMATE_MIN_NR_MATCH) & inv_ok & ok)
 
     # compact inliers to the front of the match buffer
     keep, _ = compact_indices(inlier_mask, M)

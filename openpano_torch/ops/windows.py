@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from .._build import cuda_library
 from ..utils.precision import full_f32
+from ..utils.timer import span
 
 SLAB_LANES = 256
 MAX_WINDOW_RADIUS = 63
@@ -394,14 +395,15 @@ def orientation_histogram(mag, ort, s, y, x, rad, invden, R: int, wh=None,
     come back zero.  Returns [K, 36] (or [B, K, 36])."""
     if not 0 <= R <= MAX_WINDOW_RADIUS:
         raise ValueError(f"window radius {R} outside [0, {MAX_WINDOW_RADIUS}]")
-    hb, wb = _bounds(mag, s, wh)
-    if valid is None:
-        valid = torch.ones(s.shape, dtype=torch.bool, device=s.device)
-    mag, ort, s, (y, x, rad, invden, hb, wb, valid), bk = _fold(
-        mag, ort, s, [y, x, rad, invden, hb, wb, valid])
-    hist = _route(mag, ori_hist_plain, ori_hist_cuda, mag, ort, s, y, x,
-                  rad.to(torch.float32), invden.to(torch.float32), hb, wb,
-                  valid, R)
+    with span("kernel.k1"):
+        hb, wb = _bounds(mag, s, wh)
+        if valid is None:
+            valid = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+        mag, ort, s, (y, x, rad, invden, hb, wb, valid), bk = _fold(
+            mag, ort, s, [y, x, rad, invden, hb, wb, valid])
+        hist = _route(mag, ori_hist_plain, ori_hist_cuda, mag, ort, s, y, x,
+                      rad.to(torch.float32), invden.to(torch.float32), hb,
+                      wb, valid, R)
     return hist if bk is None else hist.reshape(*bk, ORI_NBINS)
 
 
@@ -414,15 +416,17 @@ def descriptor_histogram(mag, ort, s, y, x, radius, hw, dirv, R: int, wh=None,
     :func:`orientation_histogram`."""
     if not 0 <= R <= MAX_WINDOW_RADIUS:
         raise ValueError(f"window radius {R} outside [0, {MAX_WINDOW_RADIUS}]")
-    hb, wb = _bounds(mag, s, wh)
-    if valid is None:
-        valid = torch.ones(s.shape, dtype=torch.bool, device=s.device)
-    dirv = dirv.to(torch.float32)
-    mag, ort, s, (y, x, radius, hw, dirv, hb, wb, valid), bk = _fold(
-        mag, ort, s, [y, x, radius, hw, dirv, hb, wb, valid])
-    hist = _route(mag, desc_hist_plain, desc_hist_cuda, mag, ort, s, y, x,
-                  radius.to(torch.float32), hw.to(torch.float32),
-                  torch.cos(dirv), torch.sin(dirv), dirv, hb, wb, valid, R)
+    with span("kernel.k2"):
+        hb, wb = _bounds(mag, s, wh)
+        if valid is None:
+            valid = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+        dirv = dirv.to(torch.float32)
+        mag, ort, s, (y, x, radius, hw, dirv, hb, wb, valid), bk = _fold(
+            mag, ort, s, [y, x, radius, hw, dirv, hb, wb, valid])
+        hist = _route(mag, desc_hist_plain, desc_hist_cuda, mag, ort, s, y,
+                      x, radius.to(torch.float32), hw.to(torch.float32),
+                      torch.cos(dirv), torch.sin(dirv), dirv, hb, wb, valid,
+                      R)
     return hist if bk is None else hist.reshape(*bk, -1)
 
 

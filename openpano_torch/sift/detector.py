@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from ..config import Config
 from ..ops.compact import compact_indices
 from ..ops.imgproc import rgb2grey
+from ..utils.timer import span
 from .descriptor import Features, describe_keypoints
 from .extrema import RawKeypoints, detect_extrema
 from .orientation import orient_keypoints
@@ -50,7 +51,9 @@ def keypoint_candidates(octaves, cfg: Config):
     raws, whs, mags, orts = [], [], [], []
     for oi, octave in enumerate(octaves):
         caps = octave_caps(cfg, oi)
-        raw = detect_extrema(octave, cfg, cap_cand=caps[0], cap_kp=caps[1])
+        with span("features.extrema"):
+            raw = detect_extrema(octave, cfg, cap_cand=caps[0],
+                                 cap_kp=caps[1])
         oh, ow = octave.mag.shape[-2], octave.mag.shape[-1]
         raws.append(raw._replace(s=raw.s + oi * S))  # octave folds into scale
         whs.append(torch.tensor([ow, oh], dtype=torch.float32,
@@ -64,7 +67,8 @@ def keypoint_candidates(octaves, cfg: Config):
 
     # compact raw keypoints from all octaves into the per-image budget
     K = cfg.MAX_KP_PER_IMAGE
-    keep, n = compact_indices(raw_all.valid, K)
+    with span("features.compact"):
+        keep, n = compact_indices(raw_all.valid, K)
     rvalid = torch.arange(K, device=keep.device) < n[:, None]
     raw_c = RawKeypoints(*(a.gather(1, keep) for a in raw_all))
     raw_c = raw_c._replace(valid=rvalid)
@@ -94,12 +98,15 @@ def detect_and_describe(imgs: torch.Tensor, orig_wh: torch.Tensor,
     """imgs: [B, H, W] grey or [B, H, W, 3] RGB float32 working images
     (already at SIFT working size); orig_wh: [B, 2] original (w, h) for the
     coordinate output.  Returns Features [B, MAX_KP_PER_IMAGE, ...]."""
-    grey = rgb2grey(imgs) if imgs.dim() == 4 else imgs
-    octaves = build_scale_space(grey, cfg)
+    with span("features.pyramid"):
+        grey = rgb2grey(imgs) if imgs.dim() == 4 else imgs
+        octaves = build_scale_space(grey, cfg)
     raw_c, wh_c, mag_all, ort_all = keypoint_candidates(octaves, cfg)
-    oriented, wh_o = orient_keypoints(raw_c, mag_all, ort_all, cfg,
-                                      cap=cfg.MAX_KP_PER_IMAGE, wh=wh_c)
-    desc = describe_keypoints(oriented, mag_all, ort_all, cfg, wh=wh_o)
+    with span("features.orientation"):
+        oriented, wh_o = orient_keypoints(raw_c, mag_all, ort_all, cfg,
+                                          cap=cfg.MAX_KP_PER_IMAGE, wh=wh_c)
+    with span("features.descriptor"):
+        desc = describe_keypoints(oriented, mag_all, ort_all, cfg, wh=wh_o)
     return keypoint_features(oriented, desc, orig_wh)
 
 

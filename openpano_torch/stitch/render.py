@@ -53,6 +53,7 @@ import torch
 
 from ..geometry.polygon import convex_hull
 from ..ops.imgproc import INVALID, bilinear_prologue
+from ..utils.timer import span
 from .projection import PROJECTIONS
 
 BLEND_GROUPS = 4
@@ -575,12 +576,13 @@ def blend_linear_stream_u8(imgs: torch.Tensor, plan: RenderPlan,
                     color_acc, w_acc, g * SW, plan.out_h, SW)))
                 count(down_bytes=plan.out_h * SW * 4,
                       down_plain_bytes=plan.out_h * SW * 4)
-    if coded:
-        parts = [_planes_to_rgba(s.wait(), plan.out_h) for s in strips]
-    else:
-        parts = [s.wait().view(np.uint8).reshape(plan.out_h, SW, 4)
-                 for s in strips]
-    return np.concatenate(parts, axis=1)[:, : plan.out_w]
+    with span("blend.download"):
+        if coded:
+            parts = [_planes_to_rgba(s.wait(), plan.out_h) for s in strips]
+        else:
+            parts = [s.wait().view(np.uint8).reshape(plan.out_h, SW, 4)
+                     for s in strips]
+        return np.concatenate(parts, axis=1)[:, : plan.out_w]
 
 
 def _device_put_planar_coded(band: np.ndarray, dev) -> torch.Tensor:

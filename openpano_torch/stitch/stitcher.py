@@ -41,7 +41,7 @@ from ..match.matcher import MatchResult, match_all_pairs, match_ring_pairs, \
 from ..sift.descriptor import Features
 from ..utils import prng
 from ..utils.debug import assert_finite
-from ..utils.timer import total_timer
+from ..utils.timer import span, total_timer
 from .render import blend, blend_linear_host_stream, blend_linear_sharded, \
     blend_linear_stream_u8, f32_to_u8, packed_gather, plan_render
 from .stitcherbase import DeferredImages, HostImages, compute_features, \
@@ -140,14 +140,16 @@ def build_pairwise_graph(feats: Features, whs: torch.Tensor, cfg: Config,
             else:
                 infos = _ransac_sharded(res, keep, keys, feats, whs, ii, jj,
                                         cfg, affine, mesh)
-        homo = infos.homo.cpu().numpy()
-        conf = infos.confidence.cpu().numpy()
-        to_pos = infos.to_pos.cpu().numpy().astype(np.float64)
-        from_pos = infos.from_pos.cpu().numpy().astype(np.float64)
-        pvalid = infos.valid.cpu().numpy()
-        for p, (i, j) in enumerate(zip(pair_ii, pair_jj)):
-            filled[(i, j)] = graph.fill_pair(
-                i, j, conf[p], homo[p], to_pos[p], from_pos[p], pvalid[p])
+        with span("match.graph"):
+            homo = infos.homo.cpu().numpy()
+            conf = infos.confidence.cpu().numpy()
+            to_pos = infos.to_pos.cpu().numpy().astype(np.float64)
+            from_pos = infos.from_pos.cpu().numpy().astype(np.float64)
+            pvalid = infos.valid.cpu().numpy()
+            for p, (i, j) in enumerate(zip(pair_ii, pair_jj)):
+                filled[(i, j)] = graph.fill_pair(
+                    i, j, conf[p], homo[p], to_pos[p], from_pos[p],
+                    pvalid[p])
     if ordered:
         # an unmatched adjacent pair is fatal except the head-tail wrap
         # (stitcher.cc:127); pairs dropped above count as unmatched
@@ -459,25 +461,34 @@ def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
 
     with total_timer("blend"):
         if isinstance(imgs, DeferredImages):
-            imgs = imgs.get()          # join the background chroma stream
-        plan = plan_render(homos, whs_np, mid, proj, cfg.MAX_OUTPUT_SIZE)
+            with span("blend.join"):
+                imgs = imgs.get()      # join the background chroma stream
+        with span("blend.plan"):
+            plan = plan_render(homos, whs_np, mid, proj, cfg.MAX_OUTPUT_SIZE)
         if mesh is not None:
             src = imgs.host if isinstance(imgs, HostImages) else imgs
             result = to_output(blend_sharded(src, plan, cfg, mesh), output)
         elif isinstance(imgs, HostImages):
-            result = _blend_host_stream(imgs, plan, cfg, output)
+            with span("blend.render"):
+                result = _blend_host_stream(imgs, plan, cfg, output)
         else:
             src = imgs.to(torch.float32)
             if imgs.dtype == torch.uint8:
                 src = src / 255.0
             if output == "u8" and cfg.MULTIBAND == 0 and cfg.STREAM_BLEND:
-                rgba = blend_linear_stream_u8(src, plan, cfg.ORDERED_INPUT,
-                                              packed_gather=packed_gather())
+                # its strips download while later bands render
+                # (``blend.download`` inside ``blend.render``)
+                with span("blend.render"):
+                    rgba = blend_linear_stream_u8(
+                        src, plan, cfg.ORDERED_INPUT,
+                        packed_gather=packed_gather())
                 result = (rgba[..., :3], rgba[..., 3] > 0)
             else:
-                canvas = blend(src, plan, ordered=cfg.ORDERED_INPUT,
-                               multiband=cfg.MULTIBAND)
-                result = to_output(canvas, output)
+                with span("blend.render"):
+                    canvas = blend(src, plan, ordered=cfg.ORDERED_INPUT,
+                                   multiband=cfg.MULTIBAND)
+                with span("blend.download"):
+                    result = to_output(canvas, output)
     if info_out is not None:
         info_out.update(homos=homos, plan=plan)
     return result

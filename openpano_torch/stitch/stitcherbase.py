@@ -45,6 +45,7 @@ from ..config import Config
 from ..ops.imgproc import resize, working_size
 from ..sift.descriptor import Features
 from ..sift.detector import detect_and_describe
+from ..utils.timer import span
 
 FEATURE_BATCH = 4   # the default of ``feature_batch()``
 
@@ -84,12 +85,13 @@ def _batch_features(grey_or_imgs: torch.Tensor, cfg: Config, w: int,
     [B, H, W] grey plane goes as it is, f32 RGB greys in the detector."""
     wh_, ww_ = working_size(w, h, cfg.SIFT_WORKING_SIZE)
     batch = grey_or_imgs
-    orig = torch.tensor([w, h], dtype=torch.float32, device=batch.device)
-    if batch.dtype == torch.uint8:
-        work = resize(grey_u8(batch), wh_, ww_)
-    else:
-        batch = batch.to(torch.float32)
-        work = resize(batch, wh_, ww_, rgb=batch.dim() == 4)
+    with span("features.resize"):
+        orig = torch.tensor([w, h], dtype=torch.float32, device=batch.device)
+        if batch.dtype == torch.uint8:
+            work = resize(grey_u8(batch), wh_, ww_)
+        else:
+            batch = batch.to(torch.float32)
+            work = resize(batch, wh_, ww_, rgb=batch.dim() == 4)
     return detect_and_describe(work, orig.expand(batch.shape[0], 2), cfg)
 
 
@@ -106,7 +108,8 @@ def compute_features(imgs, cfg: Config, dev=None) -> Features:
     for lo in range(0, n, B):
         batch = imgs[lo : lo + B]
         if isinstance(batch, np.ndarray):
-            batch = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
+            with span("features.upload"):
+                batch = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
         parts.append(_batch_features(batch, cfg, w, h))
     feats = Features(*(torch.cat(f, dim=0) for f in zip(*parts)))
     _check_counts(feats)
@@ -114,7 +117,8 @@ def compute_features(imgs, cfg: Config, dev=None) -> Features:
 
 
 def _check_counts(feats: Features):
-    counts = feats.valid.sum(1).tolist()
+    with span("features.check"):
+        counts = feats.valid.sum(1).tolist()
     for i, c in enumerate(counts):
         if c == 0:
             raise RuntimeError(f"Cannot find feature in image {i}!")
@@ -274,10 +278,11 @@ def _grey_features(grey8: np.ndarray, res: np.ndarray, cfg: Config,
     grey_parts, feat_parts, pending = [], [], []
     for lo in range(0, n, CH):
         hi = min(lo + CH, n)
-        dg = wirecodec.upload_u8_rows(grey8[lo:hi].reshape(-1, w), dev)
-        dr = wirecodec.upload_2bit_rows(res[lo:hi].reshape(-1, w), dev)
-        grey_parts.append((dg, dr))
-        pending.extend(_grey_sum_to_f32(dg, dr, hi - lo, h, w).unbind(0))
+        with span("features.upload"):
+            dg = wirecodec.upload_u8_rows(grey8[lo:hi].reshape(-1, w), dev)
+            dr = wirecodec.upload_2bit_rows(res[lo:hi].reshape(-1, w), dev)
+            grey_parts.append((dg, dr))
+            pending.extend(_grey_sum_to_f32(dg, dr, hi - lo, h, w).unbind(0))
         while len(pending) >= B or (hi == n and pending):
             batch = torch.stack(pending[:B])
             del pending[:B]
@@ -311,7 +316,8 @@ def upload_and_compute_features(host_u8: np.ndarray, cfg: Config,
     dev = resolve_device(device)
     n, h, w = host_u8.shape[0], host_u8.shape[1], host_u8.shape[2]
     t0 = time.perf_counter()
-    grey8, res = native.wire_grey_res_u8(host_u8)  # [N, H, W] u8 each
+    with span("features.encode"):
+        grey8, res = native.wire_grey_res_u8(host_u8)  # [N, H, W] u8 each
     wirecodec.count(encode_s=time.perf_counter() - t0)
     g8_rows = grey8.reshape(n * h, w)
 
