@@ -6,8 +6,9 @@
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: the package's CUDA source (one file, one nvcc run), with
-     ptxas's registers, shared memory and spills per kernel;
+  2. build: the package's CUDA sources (``windows.cu`` and ``extrema.cu``,
+     one nvcc run each), with ptxas's registers, shared memory and spills
+     per kernel;
   3. inputs: the headline set — 38 uint8 views of 1300x867 of a camera
      yawing through a 336 degree sweep (40 degree field of view, 80%
      overlap) over ``procedural_scene_large``, shuffled: the shape of the
@@ -21,11 +22,14 @@ Phases, each fatal on failure:
      K3 on the headline batch's planes and descriptor keypoints (WR =
      slab_rows(19) = 56) and on a random case with odd plane sizes,
      keypoints on every border and planes out of range, held bit-equal to
-     its plain version; each run
+     its plain version; the extrema kernels on every octave each path's
+     first feature batch hands them, held to their plain version on the
+     same card tensors bit for bit in every field and slot; each run
      twice for identical bits; median times by CUDA events of the launch
      alone (arguments cast beforehand), the plain version's time, the
      library call's where one PyTorch call computes the same function, and
-     the least time the card could take;
+     the least time the card could take (the extrema's at octave 0 of the
+     headline's batch);
   5. references: a 4-view strip (TRANS), 5 rotating views (the default
      Config) and a 6-view sweep in CYLINDER mode with MULTIBAND=2 stitched
      on the card and on the CPU (the plain versions, which the tests hold
@@ -174,7 +178,7 @@ from openpano_torch.io.image import read_img_u8, write_rgb  # noqa: E402
 from openpano_torch.ops.imgproc import crop_with_mask  # noqa: E402
 from openpano_torch.parallel import init_distributed, make_mesh  # noqa: E402
 from openpano_torch.parallel import mesh as pmesh  # noqa: E402
-from openpano_torch.sift import brief  # noqa: E402
+from openpano_torch.sift import brief, detector, extrema  # noqa: E402
 from openpano_torch.stitch import render, stitcher  # noqa: E402
 from openpano_torch.stitch.cylstitcher import stitch_cylinder  # noqa: E402
 from openpano_torch.stitch.multiband import _roi_sizes, blend_multiband, \
@@ -223,7 +227,12 @@ KERNELS = (
 )
 SLAB = ("gather_window_slabs", windows.gather_window_slabs,
         "openpano_tpu/ops/windows.py:93")
-WRAPPERS = [w for _, w, _, _, _ in KERNELS] + [SLAB[1]]
+# name, wrapper, what it replaces: no TPU kernel (XLA fused the JAX chain)
+EXTREMA = ("detect_extrema", extrema.detect_extrema,
+           "none: openpano_tpu/sift/extrema.py is left to XLA")
+WRAPPERS = [w for _, w, _, _, _ in KERNELS] + [SLAB[1], EXTREMA[1]]
+# the kernels every stitch path launches
+ON_PATH = [n for n, _, _, _, _ in KERNELS] + [EXTREMA[0]]
 # operations each in-window pixel needs: K1 weight (r^2, exp, product),
 # bin (scale, add, floor, wrap) and the add into the bin; K2 the rotation
 # and division by the bin width, three bin coordinates, the weight, the
@@ -434,20 +443,71 @@ def kernel_phase(batches: dict) -> list[dict]:
 
 def capture_path_inputs(u8: np.ndarray, cfg: Config) -> dict:
     """Run the first feature batch of a path with recorders on the kernel
-    launchers; keep each kernel's first argument tuple."""
-    captured = {}
+    launchers; keep each window kernel's first argument tuple and, under
+    "detect_extrema", every octave's (octave, config, cap_cand, cap_kp)."""
+    captured = {EXTREMA[0]: []}
     saved = {attr: getattr(windows, attr) for _, _, attr, _, _ in KERNELS}
     for name, _, attr, _, _ in KERNELS:
         def rec(*args, _name=name, _fn=saved[attr]):
             captured.setdefault(_name, args)
             return _fn(*args)
         setattr(windows, attr, rec)
+    real = detector.detect_extrema
+
+    def rec_extrema(octave, c, cap_cand=None, cap_kp=None):
+        captured[EXTREMA[0]].append((octave, c, cap_cand, cap_kp))
+        return real(octave, c, cap_cand, cap_kp)
+
+    detector.detect_extrema = rec_extrema
     try:
         compute_features(torch.from_numpy(u8[:feature_batch()]).cuda(), cfg)
     finally:
         for attr, fn in saved.items():
             setattr(windows, attr, fn)
+        detector.detect_extrema = real
     return captured
+
+
+def extrema_phase(batches: dict) -> dict:
+    """The extrema kernels against their plain version, bit for bit in every
+    field and slot, on every octave of the captured feature batches; times
+    of the kernels and the plain version at octave 0 of the first path's,
+    with the least time the card could take: the DoG read once and the
+    keypoints written once."""
+    name, wrapper, replaces = EXTREMA
+    for label, captured in batches.items():
+        check(captured[name], f"the {label} path never reached {name}")
+        for oi, args in enumerate(captured[name]):
+            before = wrapper.launches
+            a = extrema.detect_extrema(*args)
+            b = extrema.detect_extrema(*args)
+            p = extrema.detect_extrema_plain(*args)
+            torch.cuda.synchronize()
+            launched = (wrapper.launches - before) // 2
+            repeat = all(torch.equal(u, v) for u, v in zip(a, b))
+            same = all(torch.equal(u, v) for u, v in zip(a, p))
+            print(f"{name} [{label} octave {oi}] dog="
+                  f"{tuple(args[0].dog.shape)} caps={args[2]},{args[3]} "
+                  f"keypoints={int(a.valid.sum())} launches a call="
+                  f"{launched} bit-equal to plain={same} "
+                  f"bit-identical repeat={repeat}")
+            check(repeat, f"{name} ({label}, octave {oi}): two runs differ")
+            check(same, f"{name} ({label}, octave {oi}): differs from its "
+                  "plain version")
+            check(launched <= 3, f"{name}: {launched} launches a call")
+    args = next(iter(batches.values()))[name][0]
+    ms = median_ms(lambda: extrema.detect_extrema(*args), 50)
+    plain_ms = median_ms(lambda: extrema.detect_extrema_plain(*args), 5)
+    B = args[0].dog.shape[0]
+    nbytes = args[0].dog.numel() * 4 + B * args[3] * (3 * 8 + 3 * 4 + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{name}: kernels {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms by bytes (dog {tuple(args[0].dog.shape)}, "
+          f"{nbytes} B)")
+    return dict(name=name, route="cuda", source="openpano_torch/csrc/extrema.cu",
+                replaces=replaces, launches=None, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None, on_path=True)
 
 
 
@@ -672,7 +732,7 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {n: w.launches for n, w in
-            [(n, w) for n, w, _, _, _ in KERNELS] + [SLAB[:2]]}
+            [(n, w) for n, w, _, _, _ in KERNELS] + [SLAB[:2], EXTREMA[:2]]}
 
 
 def drive(label: str, u8: np.ndarray, cfg: Config, key=None,
@@ -702,7 +762,7 @@ def drive(label: str, u8: np.ndarray, cfg: Config, key=None,
           f"device memory {info['peak_gib']:.2f} GiB")
     print(f"{label} stages_s: {json.dumps(stages)}")
     print(f"{label} kernels launched: {json.dumps(launches)}")
-    check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
+    check(all(launches[n] > 0 for n in ON_PATH),
           f"{label}: a kernel of the path never launched")
     return canvas, valid, info, launches
 
@@ -892,7 +952,7 @@ def cli_phase(u8: np.ndarray, linear: tuple) -> dict:
         print(f"CLI PNG {png1.shape[1]}x{png1.shape[0]} equals the crop of "
               f"the main path's canvas bit for bit: {same}")
         check(same, "the CLI's PNG differs from the main path's crop")
-        check(all(launches[n] > 0 for n, _, _, _, _ in KERNELS),
+        check(all(launches[n] > 0 for n in ON_PATH),
               "CLI: a kernel of the path never launched")
         check(np.array_equal(res2[1], res1[1]),
               "--load-matchinfo: valid masks differ")
@@ -1564,12 +1624,14 @@ def main(kernels_only: bool = False) -> int:
     t_start = time.perf_counter()
 
     with phase("2 build"):
-        lib = _build.build_cuda("windows")
-        print(f"build: {lib.name}")
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line) \
-                    or "spill" in line:
-                print(f"  {line.strip()}")
+        for source in ("windows", "extrema"):
+            lib = _build.build_cuda(source)
+            print(f"build: {lib.name}")
+            for line in lib.with_suffix(".log").read_text().splitlines():
+                if "ptxas info" in line and ("Used" in line
+                                             or "Compiling" in line) \
+                        or "spill" in line:
+                    print(f"  {line.strip()}")
 
     with phase("3 inputs"):
         u8, truth, perm = headline_inputs()
@@ -1588,6 +1650,7 @@ def main(kernels_only: bool = False) -> int:
                    "TRANS": capture_path_inputs(strip, Config(**TRANS))}
         report = kernel_phase(batches)
         report.append(slab_phase(batches["main"]["descriptor_histogram"]))
+        report.append(extrema_phase(batches))
         del batches
     if kernels_only:
         print(json.dumps({"kernels": report}))

@@ -11,13 +11,19 @@ max|a-b| / max|b| < 1e-4.  It reads each wrapper's launch count, so that a
 plain path taken by mistake fails.  The JAX tool also gates its resize fork
 (the TPU's matmul resize against the gather); here the counterpart is
 ``ops.imgproc.resize`` on the card against the same call on the CPU, on
-the tool's case (257x389 to 181x263), under the same bound.
+the tool's case (257x389 to 181x263), under the same bound.  The
+extrema kernels (``sift/extrema.py``, which the JAX package leaves to XLA)
+run at the headline's shapes: the four octaves of a batch of
+``FEATURE_BATCH`` views at its working size (959x640, from a smooth
+seeded image) under the default caps, each held to the plain version on
+the same card tensors bit for bit in every field and slot.
 
     python -m openpano_torch.bench.kernel_check   # one JSON line
 
-The keys are the JAX tool's; ``pallas_active`` keeps its name and says
-here whether both hand-written kernels launched.  On a CPU tensor there is
-no kernel to check, and ``check`` raises.
+The keys are the JAX tool's and ``extrema_equal``; ``pallas_active`` keeps
+its name and says here whether every hand-written kernel launched (K1 and
+K2 once, the extrema twice an octave).  On a CPU tensor there is no
+kernel to check, and ``check`` raises.
 """
 
 from __future__ import annotations
@@ -28,16 +34,41 @@ import sys
 import numpy as np
 import torch
 
+from ..config import Config
 from ..ops import windows as W
 from ..ops.imgproc import resize
+from ..sift import extrema
+from ..sift.detector import octave_caps
+from ..sift.pyramid import build_scale_space
 from ..stitch.stitcher import resolve_device
+from ..stitch.stitcherbase import FEATURE_BATCH
 
 TOL = 1e-4   # tools/tpu_kernel_check.py:87
+HEADLINE_WORK = (640, 959)    # the headline's 1300x867 views at working size
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     scale = max(float(b.abs().max()), 1e-6)
     return float((a - b).abs().max()) / scale
+
+
+def check_extrema(seed: int, dev) -> tuple[bool, int]:
+    """The extrema kernels against the plain version at the headline's
+    shapes; returns (every octave bit-equal, kernel launches)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = HEADLINE_WORK
+    coarse = torch.rand(FEATURE_BATCH, h // 8, w // 8, generator=g,
+                        device=dev)
+    grey = resize(coarse, h, w)
+    cfg = Config()
+    before = extrema.detect_extrema.launches
+    equal = True
+    for oi, octave in enumerate(build_scale_space(grey, cfg)):
+        caps = octave_caps(cfg, oi)[:2]
+        got = extrema.detect_extrema(octave, cfg, *caps)
+        want = extrema.detect_extrema_plain(octave, cfg, *caps)
+        equal &= all(torch.equal(a, b) for a, b in zip(got, want))
+    return equal, extrema.detect_extrema.launches - before
 
 
 def check(seed: int = 0, device=None) -> dict:
@@ -86,19 +117,23 @@ def check(seed: int = 0, device=None) -> dict:
     r_card = resize(torch.from_numpy(img).to(dev), 181, 263, rgb=True)
     r_cpu = resize(torch.from_numpy(img), 181, 263, rgb=True)
     resize_rel = _rel(r_card.cpu(), r_cpu)
+    extrema_equal, extrema_launched = check_extrema(seed, dev)
 
-    active = launched == (1, 1)
-    ok = active and ori_rel < TOL and desc_rel < TOL and resize_rel < TOL
+    active = launched == (1, 1) and extrema_launched == 2 * Config.NUM_OCTAVE
+    ok = (active and ori_rel < TOL and desc_rel < TOL and resize_rel < TOL
+          and extrema_equal)
     return {
         "backend": dev.type,
         "pallas_active": bool(active),
         "ori_hist_rel_err": round(ori_rel, 8),
         "desc_hist_rel_err": round(desc_rel, 8),
         "resize_rel_err": round(resize_rel, 8),
+        "extrema_equal": bool(extrema_equal),
         "ok": bool(ok),
         "device": torch.cuda.get_device_name(dev),
         "launches": {"orientation_histogram": launched[0],
-                     "descriptor_histogram": launched[1]},
+                     "descriptor_histogram": launched[1],
+                     "detect_extrema": extrema_launched},
     }
 
 

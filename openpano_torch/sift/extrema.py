@@ -15,18 +15,33 @@ A singular 3x3 Hessian fails the keypoint instead of taking the
 pseudo-inverse step (extrema.cc:144-146), as the JAX package does.
 
 Batched over images: dog is [B, L, h, w]; keypoint arrays are [B, cap].
+
+On the card :func:`detect_extrema` launches two CUDA kernels
+(``csrc/extrema.cu``; the note there says what bounds them and how the
+design answers that) that give what :func:`detect_extrema_plain` gives on
+the card, bit for bit, in place of its chain of some 1,500 small PyTorch
+operators; a CPU tensor takes the plain version, which the tests hold
+against the JAX package.  A CUDA tensor never takes the plain path.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from .._build import cuda_library
 from ..config import Config
 from ..ops.compact import compact_indices, compact_indices_capped
+from ..utils.timer import span
 from .pyramid import Octave
+
+BLOCK_LANES = 128   # lanes per block of the capped compaction
+SCAN_WARPS = 4      # ballot words per block
+DET_EPS = 1e-18     # a smaller |det| fails the keypoint as singular
 
 
 class RawKeypoints(NamedTuple):
@@ -106,7 +121,7 @@ def _solve3x3(hess, grad):
     c12 = dsx * dxy - dxx * dys
     c22 = dxx * dyy - dxy * dxy
     det = dxx * c00 + dxy * c01 + dsx * c02
-    ok = torch.abs(det) > 1e-18
+    ok = torch.abs(det) > DET_EPS
     idet = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
     ox = (c00 * gx + c01 * gy + c02 * gs) * idet
     oy = (c01 * gx + c11 * gy + c12 * gs) * idet
@@ -114,8 +129,11 @@ def _solve3x3(hess, grad):
     return ox, oy, os_, ok
 
 
-def detect_extrema(octave: Octave, cfg: Config, cap_cand: int | None = None,
-                   cap_kp: int | None = None) -> RawKeypoints:
+def detect_extrema_plain(octave: Octave, cfg: Config,
+                         cap_cand: int | None = None,
+                         cap_kp: int | None = None) -> RawKeypoints:
+    """The plain PyTorch version of :func:`detect_extrema`: the CPU path and
+    the card's reference."""
     dog = octave.dog
     B, L, h, w = dog.shape
     ns = cfg.NUM_SCALE
@@ -207,3 +225,86 @@ def detect_extrema(octave: Octave, cfg: Config, cap_cand: int | None = None,
         real_x=take(real_x), real_y=take(real_y),
         valid=kvalid,
     )
+
+
+# ---------------------------------------------------------------------------
+# CUDA launcher
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _lib():
+    """The kernel library, loaded and its argument types set once."""
+    lib = cuda_library("extrema")
+    # pointers and the stream as c_void_p: a bare int would pass as 32 bits
+    lib.extrema_launch.argtypes = ([_P] + [_I] * 8 + [_F] * 8 + [_P] * 9)
+    lib.extrema_launch.restype = ctypes.c_int
+    return lib
+
+
+def detect_extrema_cuda(dog: torch.Tensor, cfg: Config, cap_cand: int,
+                        cap_kp: int) -> RawKeypoints:
+    """Launch the scan and the refinement on the card for a [B, L, h, w]
+    DoG stack."""
+    B, L, h, w = dog.shape
+    ns = cfg.NUM_SCALE
+    if L != ns - 1:
+        raise ValueError(f"{L} DoG levels for NUM_SCALE={ns}: the kernels "
+                         f"take NUM_SCALE - 1")
+    if h < 3 or w < 3 or (ns - 3) * h * w >= 2**31:
+        raise ValueError(f"octave {h}x{w}: the kernels take 3x3 up to 2**31 "
+                         f"scanned lanes")
+    if cap_cand < 1 or cap_kp < 0:
+        raise ValueError(f"caps {cap_cand}, {cap_kp}: need cap_cand >= 1 "
+                         f"and cap_kp >= 0")
+    if dog.dtype != torch.float32:
+        raise ValueError(f"a {dog.dtype} DoG stack: the kernels take float32")
+    dog = dog.contiguous()
+    dev = dog.device
+    nb = -(-(ns - 3) * h * w // BLOCK_LANES)
+    scratch = torch.empty(B * (nb * (SCAN_WARPS + 1) + cap_cand),
+                          dtype=torch.int32, device=dev)
+    # one allocation a field: a caller that drops one frees its memory
+    ints = [torch.empty(B, cap_kp, dtype=torch.int64, device=dev)
+            for _ in range(3)]
+    flts = [torch.empty(B, cap_kp, dtype=torch.float32, device=dev)
+            for _ in range(3)]
+    valid = torch.empty(B, cap_kp, dtype=torch.bool, device=dev)
+    edge = (cfg.EDGE_RATIO + 1.0) ** 2 / cfg.EDGE_RATIO
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().extrema_launch(
+            dog.data_ptr(), B, L, h, w, ns, cfg.CALC_OFFSET_DEPTH, cap_cand,
+            cap_kp, cfg.PRE_COLOR_THRES, cfg.JUDGE_EXTREMA_DIFF_THRES,
+            cfg.OFFSET_THRES, cfg.CONTRAST_THRES, edge, DET_EPS,
+            cfg.SCALE_FACTOR, cfg.GAUSS_SIGMA, scratch.data_ptr(),
+            *[a.data_ptr() for a in (*ints, *flts, valid)], stream)
+    if err != 0:
+        raise RuntimeError(f"extrema kernel launch failed: CUDA error {err}")
+    if B:
+        detect_extrema.launches += 2
+    return RawKeypoints(x=ints[0], y=ints[1], s=ints[2],
+                        scale_factor=flts[0], real_x=flts[1], real_y=flts[2],
+                        valid=valid)
+
+
+def detect_extrema(octave: Octave, cfg: Config, cap_cand: int | None = None,
+                   cap_kp: int | None = None) -> RawKeypoints:
+    """Refined DoG extrema of one octave, at most ``cap_kp`` an image (of the
+    first ``cap_cand`` candidates), in scan order and mask-padded: the
+    kernels for a CUDA tensor, :func:`detect_extrema_plain` for a CPU one.
+    ``detect_extrema.launches`` counts the kernel launches."""
+    cap_cand = cfg.MAX_CAND_PER_OCTAVE if cap_cand is None else cap_cand
+    cap_kp = cfg.MAX_KP_PER_OCTAVE if cap_kp is None else cap_kp
+    dev = octave.dog.device
+    with span("kernel.extrema"):
+        if dev.type == "cuda":
+            return detect_extrema_cuda(octave.dog, cfg, cap_cand, cap_kp)
+        if dev.type == "cpu":
+            return detect_extrema_plain(octave, cfg, cap_cand, cap_kp)
+    raise ValueError(f"no extrema kernel for device {dev}")
+
+
+detect_extrema.launches = 0

@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card against their plain versions, and the
-card's paths against the CPU or their in-memory forms (a CYLINDER +
+"""The CUDA kernels on the card against their plain versions (the window
+kernels within a gate, the extrema kernels bit for bit), and the card's
+paths against the CPU or their in-memory forms (a CYLINDER +
 multiband stitch, BRIEF, the host-stream blends, the CLI).
 
 Needs an NVIDIA card and ``nvcc``; skips elsewhere (the kernels have no CPU
@@ -12,11 +13,18 @@ Gate: max|a-b| / max|b| < 1e-4 against the plain version on the same card
 tensors (f32 summation order only), and two launches give the same bits.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from openpano_torch.ops import windows
+from openpano_torch.sift import extrema
+from openpano_torch.sift.pyramid import Octave
+
+import extrema_cases as ec
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -154,6 +162,104 @@ def test_slab_kernel_equals_plain_on_card(card, S, H, W, WR, B):
     for g, r, w in zip(got, again, want):
         assert torch.equal(g, r)
         assert torch.equal(g.reshape(w.shape), w)
+
+
+def _extrema_both(dog, cap_cand, cap_kp, cfg=ec.CFG):
+    """The kernels (twice) and the plain version on one card DoG stack:
+    every field equal in dtype, shape and bits, at most three launches a
+    call.  Returns the kernels' keypoints."""
+    o = Octave(None, None, None, dog)
+    before = extrema.detect_extrema.launches
+    got = extrema.detect_extrema(o, cfg, cap_cand, cap_kp)
+    again = extrema.detect_extrema(o, cfg, cap_cand, cap_kp)
+    torch.cuda.synchronize()
+    assert 0 < extrema.detect_extrema.launches - before <= 6
+    want = extrema.detect_extrema_plain(o, cfg, cap_cand, cap_kp)
+    for f in extrema.RawKeypoints._fields:
+        g, r, w = getattr(got, f), getattr(again, f), getattr(want, f)
+        assert g.dtype == w.dtype and g.shape == w.shape, f
+        assert torch.equal(g, r) and torch.equal(g, w), f
+    return got
+
+
+@pytest.mark.parametrize("cap_cand,cap_kp", [(4096, 128), (40, 128),
+                                             (4096, 16)])
+def test_extrema_kernels_equal_plain_on_crafted_volumes(card, cap_cand,
+                                                         cap_kp):
+    """``tests/extrema_cases.py``'s plants (more than 32 candidates in a
+    block, more than cap_cand, a step out of the interior, a singular
+    Hessian, offsets of exactly +-0.5, 1.5 and 2.5, the edge-ratio limit)
+    and an empty image whose slots are all padding."""
+    got = _extrema_both(ec.octave(ec.crafted(), card).dog, cap_cand, cap_kp)
+    assert got.valid[0].any() and not got.valid[1].any()
+
+
+@pytest.mark.parametrize("B,h,w,smooth,caps", [
+    (3, 67, 100, 0, (512, 128)), (2, 133, 200, 1, (1024, 512)),
+    (1, 41, 300, 2, (4096, 2048)), (4, 3, 3, 0, (128, 128))])
+def test_extrema_kernels_equal_plain_on_noise(card, B, h, w, smooth, caps):
+    """Seeded noise: candidates past every cap, steps, failures and
+    survivors at random, and the smallest octave the kernels take."""
+    dog = ec.octave(ec.noise(B, h, w, seed=h * w, smooth=smooth), card).dog
+    _extrema_both(dog, *caps)
+
+
+@pytest.fixture(scope="module")
+def cell_octaves():
+    """The DoG stacks and caps each octave of the main path hands the
+    extrema, for the first views of panorama 0 of the benchmark's two
+    cells (1300x867 and 1500x1112 views, 959x640 and 918x681 at working
+    size), in feature batches of 4 and of 1, with the working size."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from benchmark import scenes
+    from openpano_torch.config import Config
+    from openpano_torch.ops.imgproc import working_size
+    from openpano_torch.sift import detector
+    from openpano_torch.stitch.stitcherbase import compute_features
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "camera_linear.json")) as f:
+        cfg = Config(**json.load(f)["program"])
+    real = detector.detect_extrema
+    out = {}
+    for traffic in ("cmu0_unordered38", "ordered13"):
+        with open(os.path.join(root, "benchmark", "traffic",
+                               f"{traffic}.json")) as f:
+            spec = json.load(f)
+        gen, p = scenes.generator(spec["kind"]), spec["params"]
+        seed = 2**31 + 17
+        views, _ = gen.view_set(gen.build(p, seed, "cuda"), p, seed, 0)
+        for B in (4, 1):
+            seen = []
+
+            def rec(octave, cfg, cap_cand=None, cap_kp=None):
+                seen.append((octave.dog, cap_cand, cap_kp))
+                return real(octave, cfg, cap_cand, cap_kp)
+
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(detector, "detect_extrema", rec)
+                mp.setenv("OPENPANO_FEATURE_BATCH", str(B))
+                compute_features(views[:B], cfg)
+            work = working_size(p["width"], p["height"],
+                                cfg.SIFT_WORKING_SIZE)
+            out[traffic, B] = (cfg, work, seen)
+    return out
+
+
+@pytest.mark.parametrize("traffic", ["cmu0_unordered38", "ordered13"])
+@pytest.mark.parametrize("B", [4, 1])
+def test_extrema_kernels_equal_plain_at_the_cells_shapes(cell_octaves,
+                                                          traffic, B):
+    """Every octave of a feature batch of the cells' views, at their caps
+    (4096 / 2048 candidates halving per octave), bit for bit."""
+    cfg, (h, w), seen = cell_octaves[traffic, B]
+    assert len(seen) == cfg.NUM_OCTAVE
+    assert seen[0][0].shape == (B, cfg.NUM_SCALE - 1, h, w)
+    assert [c for _, c, _ in seen] == [4096, 2048, 1024, 512]
+    for dog, cap_cand, cap_kp in seen:
+        assert _extrema_both(dog, cap_cand, cap_kp, cfg).valid.any()
 
 
 def test_cylinder_multiband_stitch_card_equals_cpu(card):
@@ -445,13 +551,16 @@ def test_transport_features_and_stack_on_card(card):
 def test_kernel_check_on_card(card):
     """openpano_torch.bench.kernel_check on the JAX tool's case: K1, K2 and
     the resize within 1e-4 of their plain versions, each kernel launched
-    once."""
+    once; the extrema kernels at the headline's shapes bit-equal to their
+    plain version, launched twice an octave."""
     from openpano_torch.bench import kernel_check
 
     got = kernel_check.check(device=card)
     assert got["ok"], got
+    assert got["extrema_equal"]
     assert got["launches"] == {"orientation_histogram": 1,
-                               "descriptor_histogram": 1}
+                               "descriptor_histogram": 1,
+                               "detect_extrema": 8}
 
 
 def test_link_rates_positive(card):

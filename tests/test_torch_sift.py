@@ -28,6 +28,8 @@ from openpano_torch.sift import extrema as text, orientation as tori
 from openpano_torch.sift import pyramid as tpyr
 from openpano_torch.synth import procedural_scene_large
 
+import extrema_cases as ec
+
 CAPS = dict(MAX_CAND_PER_OCTAVE=1024, MAX_KP_PER_OCTAVE=512,
             MAX_DESC_PER_OCTAVE=512, MAX_KP_PER_IMAGE=1024,
             SIFT_WORKING_SIZE=200)
@@ -219,6 +221,78 @@ def test_extrema_keypoint_sets_equal(jax_octaves, octave):
     for f in ("scale_factor", "real_x", "real_y"):
         assert _rel(getattr(tk, f)[0].numpy()[v],
                     np.asarray(getattr(jk, f))[v]) < 1e-6
+
+
+def test_extrema_cpu_takes_the_plain_route(jax_octaves):
+    """A CPU tensor takes ``detect_extrema_plain``: the same seven fields in
+    every slot, and no kernel launch counted."""
+    assert text.detect_extrema.launches == 0
+    o = _torch_octave(jax_octaves[0])
+    got = text.detect_extrema(o, TCFG, 1024, 512)
+    want = text.detect_extrema_plain(o, TCFG, 1024, 512)
+    for f in text.RawKeypoints._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert text.detect_extrema.launches == 0
+
+
+def test_extrema_raise_on_a_device_without_kernels():
+    dog = torch.zeros(1, TCFG.NUM_SCALE - 1, 8, 8, device="meta")
+    with pytest.raises(ValueError, match="no extrema kernel"):
+        text.detect_extrema(tpyr.Octave(None, None, None, dog), TCFG)
+
+
+def _crafted_keypoints(cap_cand, cap_kp):
+    k = text.detect_extrema(ec.octave(ec.crafted()), ec.CFG, cap_cand, cap_kp)
+    v = k.valid[0]
+    pts = list(zip(k.s[0][v].tolist(), k.y[0][v].tolist(),
+                   k.x[0][v].tolist()))
+    return k, pts
+
+
+D = ec.DENSE_X
+
+
+@pytest.mark.parametrize("caps,dense,plants", [
+    # 47 peaks in one 128-lane block (x 0..95 of the row): its first 32 kept
+    ((4096, 128), D[:32] + D[47:], {"converge", "edge_in"}),
+    # 40 candidates: the three level-1 plants, then the row's first 37
+    ((40, 128), D[:32] + D[47:52], {"edge_in"}),
+    # 16 keypoint slots: the first 16 survivors in scan order
+    ((4096, 16), D[:15], {"edge_in"}),
+])
+def test_extrema_crafted_caps(caps, dense, plants):
+    """The crafted volume (``tests/extrema_cases.py``) under the caps: the
+    per-block cap of 32, the candidate cap and the keypoint cap keep the
+    first extrema in scan order; past the survivors each slot holds slot
+    0's candidate (the level-1 edge plant, refined but an edge) and is
+    invalid; the empty image's slots all hold the dead slot 0."""
+    k, pts = _crafted_keypoints(*caps)
+    assert [x for s, y, x in pts if y == ec.DENSE_Y] == dense
+    kept = {n for n, (s, y, x, *_) in ec.PLANTS.items() if (s, y, x) in pts}
+    assert kept == plants
+    n = len(pts)
+    assert n == len(dense) + len(plants) and k.valid[0, :n].all()
+    s0, y0, x0 = ec.PLANTS["edge_at"][:3]
+    for f, want in (("s", s0), ("y", y0), ("x", x0)):
+        assert (getattr(k, f)[0, n:] == want).all()
+    assert not k.valid[1].any()
+    assert (k.x[1] == 1).all() and (k.y[1] == 1).all() and (k.s[1] == 1).all()
+    for f in ("scale_factor", "real_x", "real_y"):
+        pad = getattr(k, f)
+        assert (pad[0, n:] == pad[0, -1]).all() and (pad[1] == pad[1, 0]).all()
+
+
+@pytest.mark.parametrize("name,kept", [
+    ("converge", True), ("step_out", False), ("singular", False),
+    ("half", False), ("edge_at", False), ("edge_in", True),
+    ("edge_out", False)])
+def test_extrema_crafted_branches(name, kept):
+    """Each plant takes its branch: a Newton step out of the interior, a
+    singular Hessian and an offset of exactly 0.5 (which rounds half to
+    even to no step, so it never converges) fail; tr^2 / det on the edge
+    limit 49 / 6 is an edge, just inside it is not."""
+    s, y, x = ec.PLANTS[name][:3]
+    assert ((s, y, x) in _crafted_keypoints(4096, 128)[1]) == kept
 
 
 def test_orientation_and_descriptor_sets_equal(jax_octaves):

@@ -30,7 +30,8 @@ STAGES = ("calc_feature", "pairwise_match", "match_2nn", "ransac",
 SUBSTAGES = ("features.encode", "features.upload", "features.resize",
              "features.pyramid", "features.extrema", "features.compact",
              "features.orientation", "features.descriptor", "features.check",
-             "kernel.k1", "kernel.k2", "ransac.draws", "ransac.fit",
+             "kernel.k1", "kernel.k2", "kernel.extrema", "ransac.draws",
+             "ransac.fit",
              "ransac.score", "ransac.refit", "ransac.gates", "match.graph",
              "cameras.schedule", "cameras.problem", "cameras.lm_iter",
              "blend.join", "blend.plan", "blend.render", "blend.download")
@@ -105,6 +106,7 @@ def test_substages_nest_in_their_stage(runs):
                    for n, s, e, _ in ev if n == child)
 
     for child, parent in (("features.extrema", "calc_feature"),
+                          ("kernel.extrema", "features.extrema"),
                           ("kernel.k2", "features.descriptor"),
                           ("kernel.k1", "features.orientation"),
                           ("match_2nn", "pairwise_match"),
