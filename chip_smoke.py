@@ -50,9 +50,15 @@ Phases, each fatal on failure:
      within 5% of the size the true focal and sweep give, and the cameras
      must pass bench.py's quality gate (mean reprojection error of the
      adjacent pairs against the true homographies under 2.5 px);
-  8. multiband path: the main path again with MULTIBAND=2 (bench.py's
-     multiband case), counts read around this run alone: the main path's
-     gates, the linear canvas's size, and NCC above 0.97 against it;
+  8. multiband path: the main path again at the band count of the
+     benchmark's multiband configuration
+     (``benchmark/configs/camera_multiband.json``, 5), counts read around
+     this run alone: the main path's gates, the linear canvas's size, NCC
+     above 0.97 against it, the wall, the ``blend`` stage and the
+     multiband's two stage timers, the peak device memory, and the share of
+     canvas pixels more than one u8 level off the float64 multiband
+     reference's (``benchmark/reference_multiband.py``) under the cell's
+     ``canvas_bad`` limit (``benchmark/limits/``);
   9. CLI: the headline views written as PNG files and a config file with
      every reference knob at its default and the headline caps;
      ``cli.main`` with ``--seed 1`` and ``--dump-matchinfo``, counts read
@@ -76,8 +82,9 @@ Phases, each fatal on failure:
      size the true yaws give, a valid fraction above 0.3, a non-empty crop;
   13. mesh path: ``init_distributed(device="cuda")`` at world size 1 (one
      NCCL rank, a file:// store), then (a) ``stitch_images(mesh=)`` on the
-     headline, (b) the same with MULTIBAND=2, (c) ``stitch_cylinder(mesh=)``
-     and (d) (a) with OPENPANO_SHARDED_BLEND_HOST=1, counts and collective
+     headline, (b) the same at phase 8's band count (5), (c)
+     ``stitch_cylinder(mesh=)`` and (d) (a) with
+     OPENPANO_SHARDED_BLEND_HOST=1, counts and collective
      bytes read around each run alone: each run its path's gates, K1 and K2
      launched as often as on its one-device path (10 times), valid masks
      agreeing with that path's on >= 99.95% and a u8 difference of at most
@@ -159,6 +166,7 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from benchmark import reference_multiband  # noqa: E402
 from openpano_torch import Config, stitch_images  # noqa: E402
 from openpano_torch import _build, cli, native  # noqa: E402
 from openpano_torch.bench import ba_sweep, comm_volume, giga, headline, \
@@ -211,6 +219,14 @@ SMALL = dict(RANSAC_ITERATIONS=400, MAX_CAND_PER_OCTAVE=1024,
 TRANS = dict(ESTIMATE_CAMERA=False, TRANS=True, ORDERED_INPUT=True)
 CYLINDER = dict(CYLINDER=True, ESTIMATE_CAMERA=False, ORDERED_INPUT=True)
 MB_NCC_LIMIT = headline.MB_NCC_LIMIT   # multiband against linear
+BENCH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "benchmark")
+# the multiband benchmark cell's configuration (its band count) and limits
+MB_CONFIG = os.path.join(BENCH_DIR, "configs", "camera_multiband.json")
+MB_LIMITS = os.path.join(BENCH_DIR, "limits",
+                         "camera_multiband.cmu0_unordered38.json")
+with open(MB_CONFIG) as _f:
+    MB_BANDS = json.load(_f)["program"]["MULTIBAND"]   # phases 8 and 13
 HOST_BUDGET_GB = "1.0"          # the host-stream path's OPENPANO_HBM_BUDGET_GB
 HOST_GROUPS = 7                 # its bands: ceil(1.54 GB / (1.0 GB / 4))
 MESH_VALID_AGREE = 0.9995       # tests/test_parallel.py:61, mesh against one
@@ -841,15 +857,22 @@ def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
 
 def multiband_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
                    linear: tuple) -> tuple:
-    """The main path with MULTIBAND=2 (bench.py:147-173): its gates, the
-    linear canvas's size, and NCC above 0.97 against the linear canvas.
-    Returns (canvas, valid, info, launches)."""
-    canvas, valid, info, launches = main_path(u8, truth, perm, multiband=2)
+    """The main path at the multiband benchmark configuration's band count:
+    its gates, the linear canvas's size, NCC above 0.97 against the linear
+    canvas, and the canvas against the float64 multiband reference under
+    the cell's ``canvas_bad`` limit.  Returns (canvas, valid, info,
+    launches)."""
+    with open(MB_LIMITS) as f:
+        limit = json.load(f)["canvas_bad"]
+    canvas, valid, info, launches = main_path(u8, truth, perm,
+                                              multiband=MB_BANDS)
     lin, lin_valid, lin_info = linear
     plan = info["plan"]
-    print(f"blend stage: multiband {info['stages_s']['blend']} s ("
-          f"{len(plan.items)} render items of {len(plan.whs)} views, RoI "
-          f"planes {_roi_sizes(plan)}), linear "
+    st = info["stages_s"]
+    print(f"blend stage: multiband {st['blend']} s ({len(plan.items)} render "
+          f"items of {len(plan.whs)} views, RoI planes {_roi_sizes(plan)}; "
+          f"multiband.first_level {st['multiband.first_level']} s, "
+          f"multiband.levels {st['multiband.levels']} s), linear "
           f"{lin_info['stages_s']['blend']} s")
     check(canvas.shape == lin.shape, f"multiband canvas {canvas.shape} vs "
           f"linear {lin.shape}")
@@ -859,7 +882,33 @@ def multiband_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
           f"{(valid & lin_valid).mean():.4f} of the canvas, valid agree "
           f"{(valid == lin_valid).mean():.6f}")
     check(ncc > MB_NCC_LIMIT, f"multiband NCC against linear {ncc:.4f}")
+    bad = multiband_reference_bad(u8, info["homos"], canvas, valid, MB_BANDS)
+    print(f"multiband {MB_BANDS} bands against the float64 reference: "
+          f"{bad:.3g} of the canvas off (limit {limit})")
+    check(bad <= limit, f"multiband canvas off the reference: {bad}")
     return canvas, valid, info, launches
+
+
+def multiband_reference_bad(u8: np.ndarray, homos, canvas: np.ndarray,
+                            valid: np.ndarray, bands: int) -> float:
+    """The share of canvas pixels more than one u8 level off the float64
+    multiband reference's blend of the same views through the same
+    transforms, or inside one of the two masks only."""
+    n, h, w = u8.shape[:3]
+    cfg = Config(MULTIBAND=bands, **HEADLINE)
+    pl = reference_multiband.plan(np.asarray(homos, np.float64),
+                                  np.repeat([[float(w), float(h)]], n, 0),
+                                  n >> 1, "spherical", cfg.MAX_OUTPUT_SIZE)
+    want, want_m = reference_multiband.blend(
+        torch.as_tensor(u8, device="cuda"), pl,
+        {"MULTIBAND": bands, "GAUSS_WINDOW_FACTOR": cfg.GAUSS_WINDOW_FACTOR})
+    if tuple(want.shape) != canvas.shape:
+        return 1.0
+    got = torch.as_tensor(canvas, device="cuda")
+    got_m = torch.as_tensor(valid, device="cuda")
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs().amax(-1)
+    bad = (got_m != want_m) | (got_m & want_m & (diff > 1))
+    return float(bad.double().mean())
 
 
 def u8_agreement(label: str, got: tuple, want: tuple) -> int:
@@ -1125,8 +1174,8 @@ MESH_INFO = ("cams", "lm_iters", "lm_time_s", "stages_s", "wall_s",
 
 def mesh_runs(mesh, u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
     """The runs of the mesh path, through the entry points a user calls:
-    (a) stitch_images(mesh=) on the headline, (b) the same with
-    MULTIBAND=2, (c) stitch_cylinder(mesh=), (d) (a) with
+    (a) stitch_images(mesh=) on the headline, (b) the same at phase 8's
+    band count, (c) stitch_cylinder(mesh=), (d) (a) with
     OPENPANO_SHARDED_BLEND_HOST=1, each with its path's gates.  Returns
     {run: (canvas, valid, info, launches)} and under "uploads" the band
     uploads of (d) by view count; info is cut to ``MESH_INFO``, so that the
@@ -1140,7 +1189,7 @@ def mesh_runs(mesh, u8: np.ndarray, truth: dict, perm: np.ndarray) -> dict:
 
     runs = {
         "a": main_path(u8, truth, perm, mesh=mesh, label="mesh (a) linear"),
-        "b": main_path(u8, truth, perm, multiband=2, mesh=mesh,
+        "b": main_path(u8, truth, perm, multiband=MB_BANDS, mesh=mesh,
                        label="mesh (b) multiband"),
         "c": cylinder_path(u8, truth, perm, mesh=mesh,
                            label="mesh (c) CYLINDER")}

@@ -21,10 +21,13 @@ sent to the neighbouring ranks.
 Planes live in one [M, Rh, Rw, 4] buffer, one per render item (a
 wrap-straddling image contributes one item per canvas-edge strip), with
 Rh / Rw the largest item bbox rounded up to 8 / 128 rows / columns as in
-the JAX package.  That rounding is semantics, not layout: the blur
-replicates the plane's edge, so the zero padding decides what the blur
-sees near an item's RoI edge.  Validity at every level is the first-level
-w>0 mask, as in the reference.  Items add into the canvas accumulators one
+the JAX package.  Before each blur a plane's padding past its item's box
+takes the box's last row and column (``_replicate_box_edges``), so the
+blur replicates the item's own box edge as the reference's does
+(gaussian.hh:52-60); the JAX package leaves the padding zero, and its
+canvas departs from this one within the blurs' reach of an item's right
+and bottom box edges.  Validity at every level is the first-level w>0
+mask, as in the reference.  Items add into the canvas accumulators one
 after the other in item order, so the f32 sums are the same on every
 device (no atomics).
 """
@@ -36,6 +39,7 @@ import torch
 
 from ..ops.gaussian import blur
 from ..ops.imgproc import INVALID
+from ..utils.timer import span, total_timer
 from .projection import PROJECTIONS
 from .render import RenderPlan, _sample_bilinear_paired, _tile_jobs, \
     band_jobs_local, band_paired, pair_imgs_x
@@ -56,6 +60,30 @@ def _origins(ranges: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     [0, out] as a dynamic slice clamps its start."""
     r = np.asarray(ranges, np.int64)
     return np.stack([np.clip(r[:, 0], 0, out_w), np.clip(r[:, 1], 0, out_h)], 1)
+
+
+def _box_sizes(ranges, rh: int, rw: int) -> np.ndarray:
+    """[M, 2] (rows, columns) of each item's box (x0, y0, x1, y1) inside
+    its [Rh, Rw] plane."""
+    r = np.asarray(ranges, np.int64)
+    return np.stack([np.clip(r[:, 3] - r[:, 1], 0, rh),
+                     np.clip(r[:, 2] - r[:, 0], 0, rw)], 1)
+
+
+def _replicate_box_edges(planes: torch.Tensor, sizes) -> torch.Tensor:
+    """Fill each plane's padding past its item's box with the box's last
+    row, then its last column, in place: the blur then sees the box's edge
+    replicated (gaussian.hh:52-60), not the zeros of the shared layout.
+    The accumulations read only in-box pixels, so they are unchanged."""
+    rh, rw = planes.shape[1], planes.shape[2]
+    for m, (h, w) in enumerate(sizes):
+        if h == 0 or w == 0:
+            continue
+        if h < rh:
+            planes[m, h:, :w] = planes[m, h - 1 : h, :w]
+        if w < rw:
+            planes[m, :, w:] = planes[m, :, w - 1 : w]
+    return planes
 
 
 def _first_level(imgs6: torch.Tensor, homo_invs: torch.Tensor,
@@ -161,37 +189,46 @@ def blend_multiband(imgs: torch.Tensor, plan: RenderPlan,
                     band_level: int) -> torch.Tensor:
     """Full multiband run (multiband.cc:59-123).  imgs: [N, H, W, 3] f32
     with INVALID marking empty pixels; returns the [out_h, out_w, 3] canvas
-    with INVALID where empty."""
+    with INVALID where empty.  Two stage timers (each waits for the card at
+    its end): ``multiband.first_level`` (the planes and the seam) and
+    ``multiband.levels`` (the band loop and the clamp), with the spans
+    ``multiband.blur`` and ``multiband.accumulate`` of each level inside."""
     dev = imgs.device
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                     device=dev)
     rh, rw = _roi_sizes(plan)
     ranges = plan.items[:, 1:5]
-    planes = _first_level(
-        pair_imgs_x(imgs.to(torch.float32)), f32(plan.homo_invs),
-        f32(plan.whs), plan.items[:, 0], ranges, f32(plan.proj_min),
-        f32(plan.resolution), plan.proj, rh, rw)
-    valid = (planes[..., 3] > 0).to(torch.float32)
-    planes = _winner_take_all(planes, ranges, plan.out_h, plan.out_w)
+    sizes = _box_sizes(ranges, rh, rw)
+    with total_timer("multiband.first_level"):
+        planes = _first_level(
+            pair_imgs_x(imgs.to(torch.float32)), f32(plan.homo_invs),
+            f32(plan.whs), plan.items[:, 0], ranges, f32(plan.proj_min),
+            f32(plan.resolution), plan.proj, rh, rw)
+        valid = (planes[..., 3] > 0).to(torch.float32)
+        planes = _winner_take_all(planes, ranges, plan.out_h, plan.out_w)
 
-    target = torch.zeros(plan.out_h, plan.out_w, 3, dtype=torch.float32,
-                         device=dev)
-    visited = torch.zeros(plan.out_h, plan.out_w, dtype=torch.bool,
-                          device=dev)
-    cur = planes
-    for level in range(band_level):
-        is_last = level == band_level - 1
-        if is_last:
-            nxt = cur
-        else:
-            sigma = float(np.sqrt(level * 2 + 1.0) * 4)
-            nxt = blur(cur.movedim(-1, 1), sigma).movedim(1, -1)
-        target, visited = _accumulate_level(
-            cur, nxt, valid, ranges, target, visited, plan.out_h, plan.out_w,
-            is_last)
-        cur = nxt
-    out = torch.clamp(target, 0.0, 1.0)
-    return torch.where(visited[..., None], out, INVALID)
+    with total_timer("multiband.levels"):
+        target = torch.zeros(plan.out_h, plan.out_w, 3, dtype=torch.float32,
+                             device=dev)
+        visited = torch.zeros(plan.out_h, plan.out_w, dtype=torch.bool,
+                              device=dev)
+        cur = planes
+        for level in range(band_level):
+            is_last = level == band_level - 1
+            if is_last:
+                nxt = cur
+            else:
+                sigma = float(np.sqrt(level * 2 + 1.0) * 4)
+                with span("multiband.blur", f"level {level}"):
+                    nxt = blur(_replicate_box_edges(cur, sizes).movedim(-1, 1),
+                               sigma).movedim(1, -1)
+            with span("multiband.accumulate", f"level {level}"):
+                target, visited = _accumulate_level(
+                    cur, nxt, valid, ranges, target, visited, plan.out_h,
+                    plan.out_w, is_last)
+            cur = nxt
+        return torch.where(visited[..., None], torch.clamp(target, 0.0, 1.0),
+                           INVALID)
 
 
 # min-item-id sentinel of the seam state (no item has this id)
@@ -209,11 +246,17 @@ def _band_planes(imgs, plan: RenderPlan, jobs, rh: int, rw: int,
         return torch.zeros(0, rh, rw, 4, dtype=torch.float32, device=dev)
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                     device=dev)
-    idx, rng, org, _ = band_jobs_local(jobs, ids)
-    ranges = np.concatenate([org, rng[:, 2:]], 1).astype(np.int64)
+    idx = band_jobs_local(jobs, ids)[0]
     return _first_level(band_paired(imgs, ids, dev), f32(plan.homo_invs[ids]),
-                        f32(plan.whs[ids]), idx, ranges, f32(plan.proj_min),
-                        f32(plan.resolution), plan.proj, rh, rw)
+                        f32(plan.whs[ids]), idx, _band_ranges(jobs),
+                        f32(plan.proj_min), f32(plan.resolution), plan.proj,
+                        rh, rw)
+
+
+def _band_ranges(jobs) -> np.ndarray:
+    """[J, 4] (x0, y0, x1, y1) of a band's items, each box starting at the
+    item's placement origin."""
+    return np.concatenate([jobs[2], jobs[1][:, 2:]], 1).astype(np.int64)
 
 
 def _fold_seam(maxw: torch.Tensor, minid: torch.Tensor, w: torch.Tensor,
@@ -236,12 +279,13 @@ def _fold_band_items(planes: torch.Tensor, org, gid, maxw: torch.Tensor,
                    int(g))
 
 
-def _mb_host_band_step(planes: torch.Tensor, org, gid, minid: torch.Tensor,
-                       halo, band_level: int, Hp: int, SW: int, rh: int,
-                       rw: int):
+def _mb_host_band_step(planes: torch.Tensor, org, gid, sizes,
+                       minid: torch.Tensor, halo, band_level: int, Hp: int,
+                       SW: int, rh: int, rw: int):
     """One column band of the host-stream (and sharded) multiband blend.
     The band's items sit at strip-local origins ``org`` in a [Hp, SW + rw]
-    frame; ``minid`` is the canvas seam's winner over that frame.  At each
+    frame, their boxes ``sizes`` (``_box_sizes``) in their planes;
+    ``minid`` is the canvas seam's winner over that frame.  At each
     level ``halo(level, spill)`` hands on this band's (sum w * band, sum w)
     over the last rw columns, [Hp, rw, 4], and returns band g-1's over the
     first rw (None: nothing spills in), which is added after the band's
@@ -267,7 +311,8 @@ def _mb_host_band_step(planes: torch.Tensor, org, gid, minid: torch.Tensor,
             nxt = cur
         else:
             sigma = float(np.sqrt(level * 2 + 1.0) * 4)
-            nxt = blur(cur.movedim(-1, 1), sigma).movedim(1, -1)
+            nxt = blur(_replicate_box_edges(cur, sizes).movedim(-1, 1),
+                       sigma).movedim(1, -1)
         isum = torch.zeros(Hp, BW, 3, dtype=torch.float32, device=dev)
         wsum = torch.zeros(Hp, BW, dtype=torch.float32, device=dev)
         for i in range(J):
@@ -347,6 +392,7 @@ def blend_multiband_host_stream(imgs: np.ndarray, plan: RenderPlan,
         org = jobs[2].astype(np.int64) - [g * SW, 0]     # strip-local
         strip = _mb_host_band_step(
             _band_planes(imgs, plan, jobs, rh, rw, dev), org, jobs[3],
+            _box_sizes(_band_ranges(jobs), rh, rw),
             minid[:, g * SW : (g + 1) * SW + rw], carry, band_level, Hp, SW,
             rh, rw)
         strips.append(strip[: plan.out_h].cpu().numpy())
@@ -406,7 +452,7 @@ def blend_multiband_sharded(imgs, plan: RenderPlan, band_level: int,
     del maxw
 
     strip = _mb_host_band_step(
-        planes, org, jobs[3], minid,
+        planes, org, jobs[3], _box_sizes(_band_ranges(jobs), rh, rw), minid,
         lambda level, spill: halo_right(mesh, spill, "blend"), band_level,
         Hp, SW, rh, rw)
     canvas = all_gather(mesh, strip.transpose(0, 1), "blend").transpose(0, 1)

@@ -225,6 +225,28 @@ def test_multiband_host_stream_matches(name, groups):
         assert np.abs(jhost - mem).max() > 0.1
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_multiband_host_stream_replicates_box_edges(name):
+    """At 5 levels (four blurs, reach 27 px) the band step's planes take
+    their box's edge past it before each blur, as the in-memory ones do:
+    the two canvases agree within the gate, and both differ from a run
+    that leaves the padding zero (the JAX package's layout) by more."""
+    imgs, plan = case(name)
+    got = tmb.blend_multiband_host_stream(imgs, plan, 5, 2, device="cpu")
+    mem = tmb.blend_multiband(torch.from_numpy(f32_stack(imgs)), plan,
+                              5).numpy()
+    assert_canvases_agree(got, mem, MB_TOL)
+    keep = tmb._replicate_box_edges
+    tmb._replicate_box_edges = lambda planes, sizes: planes
+    try:
+        zero = tmb.blend_multiband_host_stream(imgs, plan, 5, 2,
+                                               device="cpu")
+    finally:
+        tmb._replicate_box_edges = keep
+    valid = (got[..., 0] >= 0) & (zero[..., 0] >= 0)
+    assert np.abs(got[valid] - zero[valid]).max() > 10 * MB_TOL
+
+
 # ---- through the entry point ----
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,14 @@
   weights tie within an ulp: those pixels are counted and bounded;
 - ``blend_multiband`` at band levels 2 and 3 on the two-image plan of
   tests/test_multiband.py and on a 12-view spherical plan whose sweep
-  passes 360 degrees (the wrap split fires): canvas within 1e-4 and equal
-  valid masks;
+  passes 360 degrees (the wrap split fires): equal valid masks, and the
+  canvas within 1e-4 away from the blurs' reach of an item's right and
+  bottom box edges.  Within that reach the two depart: the JAX package
+  blurs its planes' zero padding past the box, the port replicates the
+  box's edge as OpenPano does (tests/test_torch_multiband_reference.py
+  holds the port there to a float64 reference).  Measured at 2 levels
+  1.2e-7 (two-image) and 2.8e-5 (spherical), inside 1e-4; at 3 levels
+  0.011 and 0.0033;
 - the ``render.blend`` dispatch.
 """
 
@@ -22,11 +28,27 @@ import torch
 import openpano_tpu  # noqa: F401  (x64 on, as the JAX package runs)
 from openpano_tpu.stitch import multiband as jmb
 from openpano_tpu.stitch import render as jrender
+from openpano_torch.config import Config, gauss_window_radius
 from openpano_torch.stitch import multiband as tmb
 from openpano_torch.stitch import render as trender
 from openpano_torch.synth import procedural_scene_large, render_views
 
 TOL = 1e-4
+
+
+def padding_reach(plan, levels: int) -> np.ndarray:
+    """[out_h, out_w] canvas pixels within the blurs' summed radii of an
+    item's right or bottom box edge: the only ones the JAX package's zero
+    padding can move."""
+    reach = sum(gauss_window_radius(float(np.sqrt(2 * lv + 1.0) * 4),
+                                    Config().GAUSS_WINDOW_FACTOR)
+                for lv in range(levels - 1))
+    near = np.zeros((plan.out_h, plan.out_w), bool)
+    for _, x0, y0, x1, y1 in np.asarray(plan.items):
+        if reach and x1 > x0 and y1 > y0:
+            near[y0:y1, max(x0, x1 - reach):x1] = True
+            near[max(y0, y1 - reach):y1, x0:x1] = True
+    return near
 
 
 def two_image_plan(shift=48):
@@ -124,7 +146,11 @@ def test_blend_multiband_matches(name, levels):
     got = tmb.blend_multiband(torch.from_numpy(imgs), plan, levels).numpy()
     assert got.shape == want.shape == (plan.out_h, plan.out_w, 3)
     np.testing.assert_array_equal(got[..., 0] >= 0, want[..., 0] >= 0)
-    assert np.abs(got - want).max() <= TOL
+    diff = np.abs(got - want).max(-1)
+    near = padding_reach(plan, levels)
+    assert diff[~near].max() <= TOL
+    # the JAX package's zero padding (module docstring)
+    assert (diff[near].max() > TOL) == (levels == 3)
     assert (want[..., 0] >= 0).mean() > 0.5
 
 

@@ -7,7 +7,10 @@ emits ``openpano:stitch`` with every stage and the named substages nested
 inside it on the stitch's thread, and one ``openpano:cameras.lm_iter`` per
 LM iteration that ``info_out["lm_iters"]`` counts.  Untraced, no span
 enters ``record_function``.  The stage timers (``timer.totals``) count the
-same labels and calls either way.
+same labels and calls either way.  The same views stitched traced with
+``MULTIBAND=2`` show the multiband blend's two stage timers and its
+per-level blur and accumulation inside ``blend.render``; the linear stitch
+shows none of them.
 """
 
 import contextlib
@@ -57,11 +60,22 @@ def _stitch(views):
     return info, {k: c for k, c in calls.items() if c}
 
 
-@pytest.fixture(scope="module")
-def runs(_one_thread):
+def _views():
     views = render_views(procedural_scene_large(600, 2400, seed=0), 4,
                          out_w=320, out_h=240, hfov_deg=32, overlap=0.5)[0]
-    views = np.round(np.asarray(views) * 255).astype(np.uint8)
+    return np.round(np.asarray(views) * 255).astype(np.uint8)
+
+
+def _events(prof):
+    return [(e.name()[len(timer.PREFIX):], e.start_ns(),
+             e.start_ns() + e.duration_ns(), e.device_resource_id())
+            for e in prof.profiler.kineto_results.events()
+            if e.name().startswith(timer.PREFIX)]
+
+
+@pytest.fixture(scope="module")
+def runs(_one_thread):
+    views = _views()
     entered = []
 
     def counting(*args, **kwargs):
@@ -74,10 +88,7 @@ def runs(_one_thread):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         info, calls = _stitch(views)
-    events = [(e.name()[len(timer.PREFIX):], e.start_ns(),
-               e.start_ns() + e.duration_ns(), e.device_resource_id())
-              for e in prof.profiler.kineto_results.events()
-              if e.name().startswith(timer.PREFIX)]
+    events = _events(prof)
     return dict(entered=entered, plain_info=plain_info,
                 plain_calls=plain_calls, info=info, calls=calls,
                 events=events)
@@ -136,3 +147,45 @@ def test_stage_totals_unchanged_by_spans(runs):
     assert runs["calls"]["calc_feature"] == 1
     assert sum(e[0] == "blend" for e in runs["events"]) == \
         runs["calls"]["blend"]
+
+
+MB_LEVELS = 2
+MB_SPANS = ("multiband.first_level", "multiband.levels", "multiband.blur",
+            "multiband.accumulate")
+
+
+@pytest.fixture(scope="module")
+def mb_run(_one_thread):
+    """The views stitched traced with MULTIBAND=2: (events, timer calls)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        before = timer.totals()
+        openpano_torch.stitch_images(_views(), CFG.replace(MULTIBAND=MB_LEVELS),
+                                     output="u8", device="cpu")
+        after = timer.totals()
+    calls = {k: after[k][0] - before.get(k, (0, 0.0))[0] for k in after}
+    return _events(prof), calls
+
+
+def test_multiband_spans_nest_in_blend_render(mb_run):
+    ev, calls = mb_run
+    count = lambda n: sum(e[0] == n for e in ev)
+    assert count("multiband.first_level") == 1
+    assert count("multiband.levels") == 1
+    assert count("multiband.blur") == MB_LEVELS - 1
+    assert count("multiband.accumulate") == MB_LEVELS
+    render = [(s, e) for n, s, e, _ in ev if n == "blend.render"]
+    assert len(render) == 1
+    a, b = render[0]
+    levels = [(s, e) for n, s, e, _ in ev if n == "multiband.levels"]
+    for name, s, e, _ in ev:
+        if name in MB_SPANS:
+            assert a <= s and e <= b, name
+        if name in ("multiband.blur", "multiband.accumulate"):
+            assert levels[0][0] <= s and e <= levels[0][1], name
+    assert calls["multiband.first_level"] == calls["multiband.levels"] == 1
+
+
+def test_linear_path_has_no_multiband_spans(runs):
+    assert not [e for e in runs["events"] if e[0].startswith("multiband.")]
+    assert not [k for k in runs["calls"] if k.startswith("multiband.")]
