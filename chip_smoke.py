@@ -34,8 +34,10 @@ Phases, each fatal on failure:
      Config) and a 6-view sweep in CYLINDER mode with MULTIBAND=2 stitched
      on the card and on the CPU (the plain versions, which the tests hold
      to the JAX package) must agree; the bundle adjustment of the rotating
-     views on the card (BA_ON_HOST=False) and on the host must agree, and
-     two card runs bit for bit, as must two runs of the card's
+     views on the card (BA_ON_HOST=False) and on the host must agree, the
+     host's in C (``ba_pairs.calls`` > 0; none on the card), its cameras
+     and LM iterations those of the host's torch chain (within rel 1e-9,
+     equal), and two card runs bit for bit, as must two runs of the card's
      normal-equation assembly at 5, 38 (the headline's) and 100 cameras;
      BRIEF descriptors and matches of two headline views on the card must
      equal the CPU's bit for bit;
@@ -45,7 +47,10 @@ Phases, each fatal on failure:
      transform must recover its views' true offset and the chain must
      place every view within CHAIN_LIMIT_PX of it;
   7. main path: stitch_images with the default Config (the caps of
-     bench.py) over the headline set, counts read around this run alone:
+     bench.py) over the headline set, counts read around this run alone
+     (the host LM in C, ``ba_pairs.calls`` > 0, and the torch chain on the
+     same graph taking as many LM iterations to the same cameras within
+     rel 1e-9):
      every pair adjacent in the sweep must connect, the canvas must be
      within 5% of the size the true focal and sweep give, and the cameras
      must pass bench.py's quality gate (mean reprojection error of the
@@ -174,6 +179,7 @@ from openpano_torch.bench import ba_sweep, comm_volume, giga, headline, \
 from openpano_torch.bench import feature_batch as batch_sweep  # noqa: E402
 from openpano_torch.bench.headline import camera_error, canvas_ncc, \
     expected_canvas, headline_inputs  # noqa: E402
+from openpano_torch.camera import ba_pairs  # noqa: E402
 from openpano_torch.camera import bundle_adjuster as tba  # noqa: E402
 from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
 from openpano_torch.camera.rotation import rodrigues, \
@@ -657,19 +663,24 @@ def reference_phase():
     runs = []
     for on_host in (True, False, False):
         st = {}
+        ba_pairs.calls = 0
         t0 = time.perf_counter()
         cams = estimate_cameras(*args, cfg.replace(BA_ON_HOST=on_host),
                                 stats=st, device="cuda")
-        runs.append((cams, st, time.perf_counter() - t0))
-    (h, hs, ht), (c1, cs, ct), (c2, _, _) = runs
+        runs.append((cams, st, time.perf_counter() - t0, ba_pairs.calls))
+    (h, hs, ht, hcalls), (c1, cs, ct, ccalls), (c2, _, _, _) = runs
     frel = float(np.abs(c1.focal / h.focal - 1).max())
     rabs = float(np.abs(c1.R - h.R).max())
     print(f"bundle adjustment: host {hs['lm_iters']} LM iterations "
-          f"{ht:.3f} s, card {cs['lm_iters']} LM iterations {ct:.3f} s; "
-          f"focal max rel diff {frel:.3e}, R max abs diff {rabs:.3e}")
+          f"{ht:.3f} s ({hcalls} calls into C), card {cs['lm_iters']} LM "
+          f"iterations {ct:.3f} s ({ccalls}); focal max rel diff "
+          f"{frel:.3e}, R max abs diff {rabs:.3e}")
+    check(hcalls > 0 and ccalls == 0,
+          "the host LM did not run in C, or the card's did")
     check(frel < 1e-6 and rabs < 1e-6, "card and host cameras differ")
     check(np.array_equal(c1.focal, c2.focal) and np.array_equal(c1.R, c2.R),
           "two card runs of the bundle adjustment differ")
+    host_lm_check("rotating views", args, cfg, h, hs)
     for n in (5, N_VIEWS, 100):
         assembly_repeat(n)
 
@@ -681,6 +692,39 @@ def reference_phase():
     compare_card_cpu("CYLINDER + MULTIBAND=2", cyl,
                      Config(**CYLINDER, MULTIBAND=2, **SMALL))
     return ref, h
+
+
+@contextlib.contextmanager
+def torch_chain():
+    """The host LM on the torch chain (the card's route) in place of its C
+    routine, for a comparison."""
+    saved = tba._host_route
+    tba._host_route = lambda t: False
+    try:
+        yield
+    finally:
+        tba._host_route = saved
+
+
+def host_lm_check(label: str, args: tuple, cfg: Config, cams, stats: dict):
+    """``estimate_cameras(*args, cfg)`` on the host's torch chain: as many
+    LM iterations as the C routine's run that gave ``cams`` / ``stats``,
+    and the same cameras within rel 1e-9."""
+    st = {}
+    t0 = time.perf_counter()
+    with torch_chain():
+        want = estimate_cameras(*args, cfg, stats=st)
+    secs = time.perf_counter() - t0
+    frel = float(np.abs(cams.focal / want.focal - 1).max())
+    rabs = float(np.abs(cams.R - want.R).max())
+    print(f"host LM [{label}]: C {stats['lm_iters']} iterations "
+          f"{stats['lm_time_s']:.3f} s, torch chain {st['lm_iters']} "
+          f"iterations {st['lm_time_s']:.3f} s ({secs:.3f} s in all); focal "
+          f"max rel diff {frel:.3e}, R max abs diff {rabs:.3e}")
+    check(stats["lm_iters"] == st["lm_iters"],
+          f"{label}: the C routine and the torch chain iterate differently")
+    check(frel < 1e-9 and rabs < 1e-9,
+          f"{label}: the C routine's cameras differ from the torch chain's")
 
 
 def brief_phase(u8: np.ndarray, perm: np.ndarray):
@@ -744,6 +788,7 @@ def assembly_repeat(n: int):
 def reset_counts():
     for w in WRAPPERS:
         w.launches = 0
+    ba_pairs.calls = 0
 
 
 def read_counts() -> dict:
@@ -826,11 +871,20 @@ def main_path(u8: np.ndarray, truth: dict, perm: np.ndarray,
     key = prng.key((0, 1), "cuda")                   # PRNGKey(1)
     label = label or ("multiband path" if multiband else "main path")
     canvas, valid, info, launches = drive(label, u8, cfg, key, mesh=mesh)
+    calls = ba_pairs.calls
     print(f"bundle adjustment: {info['lm_iters']} LM iterations in "
-          f"{info['lm_time_s']:.3f} s, ba_rms_px {info['ba_rms_px']:.4f} over "
-          f"{info['ba_pairs']} pairs, {info['ba_points']} points; "
-          f"{info['connected_pairs']} connected pairs, "
-          f"{info['total_inliers']} inliers")
+          f"{info['lm_time_s']:.3f} s ({calls} calls into C), ba_rms_px "
+          f"{info['ba_rms_px']:.4f} over {info['ba_pairs']} pairs, "
+          f"{info['ba_points']} points; {info['connected_pairs']} connected "
+          f"pairs, {info['total_inliers']} inliers")
+    if mesh is None:
+        # the default stitch runs the LM on the host, in C
+        check(calls > 0, f"{label}: the host LM did not run in C")
+    if mesh is None and label == "main path":
+        g = info["graph"]
+        whs = np.repeat([[float(VIEW_W), float(VIEW_H)]], N_VIEWS, 0)
+        host_lm_check(label, (g.conf, g.homo, g.to_pos, g.from_pos, g.valid,
+                              whs), cfg, info["cams"], info)
 
     inv_perm = np.argsort(perm)
     conf = info["graph"].conf

@@ -5,12 +5,14 @@ Two kinds of library, both with a plain C interface loaded through ctypes:
 - CUDA kernels, ``csrc/<name>.cu``, compiled by ``nvcc`` for Hopper
   (``sm_90a``).  There is no fallback: a caller that needs a kernel on the
   card gets it or an error.
-- Host code at the repository root, compiled by the host C compiler: the
+- Host code, compiled by the host C compiler: at the repository root the
   crop DP (``native/crop_largest_rect.c``), the PNG codec
   (``native/png_codec.c``, linked with zlib), and the threaded transport
   codecs (``native/wire_codec.c``, the 4-bit / 2-bit wire codec, and
-  ``native/delta_code.c``, row deltas; both linked with pthreads).  A host
-  library that does not build raises: nothing falls back to Python.
+  ``native/delta_code.c``, row deltas; both linked with pthreads); in the
+  package the bundle adjustment's per-iteration problem
+  (``csrc/ba_pairs.c``, one thread, linked with libm).  A host library
+  that does not build raises: nothing falls back to Python.
 
 Loading is serialised by a lock: the transport's background upload thread
 may load the wire codec while the main thread loads another library.
@@ -40,6 +42,7 @@ CROP_SRC = NATIVE / "crop_largest_rect.c"
 PNG_SRC = NATIVE / "png_codec.c"
 WIRE_SRC = NATIVE / "wire_codec.c"
 DELTA_SRC = NATIVE / "delta_code.c"
+BA_PAIRS_SRC = CSRC / "ba_pairs.c"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
@@ -189,3 +192,12 @@ def delta_library() -> ctypes.CDLL:
                 fn.restype = None
             _loaded["delta"] = lib
         return _loaded["delta"]
+
+
+def ba_pairs_library() -> ctypes.CDLL:
+    """``csrc/ba_pairs.c`` (the pair-major LM's residuals and normal
+    equations), built with the host C compiler."""
+    with _lock:
+        if "ba_pairs" not in _loaded:
+            _loaded["ba_pairs"] = _host_library(BA_PAIRS_SRC, ("-lm",))
+        return _loaded["ba_pairs"]

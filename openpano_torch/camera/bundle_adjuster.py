@@ -25,14 +25,20 @@ The LM loop keeps the JAX package's semantics, quirks included:
 
 Everything is float64.  The loop is a Python loop (``lax.while_loop``
 there); it reads the error back each step to decide, which on the card is
-one small synchronisation per iteration.  With ``OPENPANO_CHECK_NUMERICS=1``
-each iteration also checks its residuals, normal equations, step, trial
-parameters and cost (the JAX package runs its loop under ``checkify``'s
-float checks) and raises ``NumericsError`` at the first non-finite one.
+one small synchronisation per iteration.  For CPU tensors each iteration's
+residuals and normal equations come from one C call each (``ba_pairs``,
+``csrc/ba_pairs.c``); for card tensors from the torch chain below
+(``_rows_H_dH``, ``_project``, ``_pairs_ne_blocks``, ``assemble_scatter``,
+``_pairs_residuals``), which the tests hold the C routine to.  With
+``OPENPANO_CHECK_NUMERICS=1`` each iteration also checks its residuals,
+normal equations, step, trial parameters and cost (the JAX package runs its
+loop under ``checkify``'s float checks) and raises ``NumericsError`` at the
+first non-finite one.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -40,6 +46,7 @@ import torch
 from ..utils.debug import NumericsError, assert_finite, \
     numeric_checks_enabled
 from ..utils.timer import span
+from .ba_pairs import HostPairs
 from .rotation import drodrigues, rodrigues
 
 LM_MAX_ITER = 100       # incremental_bundle_adjuster.cc:24
@@ -226,7 +233,7 @@ def solve_sym_scaled_chol(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cholesky`` does, so that the LM rejects the step by its error test;
     nothing raises and nothing waits for the device."""
     d = torch.sqrt(torch.clamp(torch.abs(torch.diagonal(A)), min=1e-30))
-    As = A / d[:, None] / d[None, :]
+    As = A / d[:, None] / d
     bs = (b / d)[:, None]
     L, info = torch.linalg.cholesky_ex(As)
     L = torch.where(info == 0, L, torch.nan)
@@ -236,12 +243,19 @@ def solve_sym_scaled_chol(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _rms(r: torch.Tensor, wm: torch.Tensor, mesh=None,
-         count_bad: bool = False) -> tuple[float, int]:
+         count_bad: bool = False, n2: float | None = None
+         ) -> tuple[float, int]:
     """(sqrt(mean of squared residuals) over active points, two per point
     (.cc:199-220); with ``count_bad`` the number of non-finite residuals,
     else 0).  With ``mesh``, the sums are this rank's, added over the ranks
     in f64 first by one all-reduce, so that every rank reads the same cost
-    and the same count."""
+    and the same count.  Without, ``n2`` may give twice the active points,
+    which the weights fix for a whole LM run: the same f64 quotient and
+    root, without counting them again."""
+    if mesh is None and not count_bad:
+        if n2 is None:
+            n2 = float((wm > 0).sum()) * 2.0
+        return math.sqrt(float((r * r).sum()) / max(n2, 1.0)), 0
     sums = [(r * r).sum(), (wm > 0).sum().to(r.dtype) * 2.0]
     if count_bad:
         sums.append((~torch.isfinite(r)).sum().to(r.dtype))
@@ -265,6 +279,12 @@ def _reduced(mesh, *parts: torch.Tensor) -> list[torch.Tensor]:
                           "ba")
     return [v.reshape(p.shape)
             for v, p in zip(flat.split([p.numel() for p in parts]), parts)]
+
+
+def _host_route(t: torch.Tensor) -> bool:
+    """Whether the LM's residuals and normal equations run in C
+    (``ba_pairs``): for CPU tensors, and nowhere else."""
+    return t.device.type == "cpu"
 
 
 def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
@@ -299,7 +319,8 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
             assert_finite(f"ba_lm[{bucket}] iteration {itr}", **named)
 
     def cost(resid, wm) -> float:
-        err, bad = _rms(resid, wm, mesh, count_bad=checks and mesh is not None)
+        err, bad = _rms(resid, wm, mesh, count_bad=checks and mesh is not None,
+                        n2=n2)
         if bad:
             raise NumericsError(f"[ba_lm[{bucket}] iteration {itr}] "
                                 f"'residuals' has {bad} non-finite values "
@@ -314,17 +335,32 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
     damp_unit = torch.where(torch.arange(n_cam * 6, device=dev) % 6 >= 3,
                             1.0, 0.1).to(dt)
 
+    # the residuals and normal equations: in C for CPU tensors, else the
+    # torch chain
+    if _host_route(params):
+        host = HostPairs(*_pairs_eff(prob), upd, n_cam)
+        residuals = host.residuals
+        blocks = host.blocks
+        normal_equations = host.normal_equations
+    else:
+        residuals = lambda flat: _pairs_residuals(flat.reshape(n_cam, 6),
+                                                  prob)
+        blocks = lambda flat, r: _pairs_ne_blocks(flat.reshape(n_cam, 6), r,
+                                                  prob, upd)
+        normal_equations = lambda flat, r: _pairs_normal_equations(
+            flat.reshape(n_cam, 6), r, prob, n_cam, upd)
+
     best_flat = params.reshape(-1)
     nr_nd, itr, lam = 0, 0, float(lm_lambda)
-    resid, wm = _pairs_residuals(params, prob)
+    resid, wm = residuals(best_flat)
+    n2 = None if mesh is not None else float((wm > 0).sum()) * 2.0
     best_err = cost(resid, wm)
     while itr < max_iter and nr_nd <= patience:
         with span("cameras.lm_iter"):
-            cur = best_flat.reshape(n_cam, 6)
             if banded:
                 from .banded import assemble_banded, solve_block_cyclic
 
-                Bp, bp, F, Tc = _pairs_ne_blocks(cur, resid, prob, upd)
+                Bp, bp, F, Tc = blocks(best_flat, resid)
                 D, U, C, rhs = _reduced(mesh,
                                         *assemble_banded(Bp, bp, F, Tc, n_cam))
                 check(normal_equations_D=D, normal_equations_U=U,
@@ -334,15 +370,15 @@ def ba_optimize_pairs(params: torch.Tensor, prob: BAPairProblem,
                          * dvec[:, :, None])
                 delta = solve_block_cyclic(D, U, C, rhs).reshape(-1)
             else:
-                JtJ, Jtb = _reduced(mesh, *_pairs_normal_equations(
-                    cur, resid, prob, n_cam, upd))
+                JtJ, Jtb = _reduced(mesh, *normal_equations(best_flat, resid))
                 check(normal_equations_JtJ=JtJ, normal_equations_Jtb=Jtb)
                 delta = solve_sym_scaled_chol(
                     JtJ + torch.diag(damp_unit * lam), Jtb)
             check(step=delta)
-            new_flat = best_flat - delta * upd_flat
+            # best - delta * upd, bit for bit: the product by 1 or 0 is exact
+            new_flat = torch.addcmul(best_flat, delta, upd_flat, value=-1.0)
             check(trial_params=new_flat)
-            resid, wm = _pairs_residuals(new_flat.reshape(n_cam, 6), prob)
+            resid, wm = residuals(new_flat)
             new_err = cost(resid, wm)
             improved = new_err < best_err - max(1e-3, rel_tol * best_err)
             if improved:

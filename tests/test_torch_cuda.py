@@ -1,7 +1,7 @@
 """The CUDA kernels on the card against their plain versions (the window
 kernels within a gate, the extrema kernels bit for bit), and the card's
-paths against the CPU or their in-memory forms (a CYLINDER +
-multiband stitch, BRIEF, the host-stream blends, the CLI).
+paths against the CPU or their in-memory forms (the pair-major LM, a
+CYLINDER + multiband stitch, BRIEF, the host-stream blends, the CLI).
 
 Needs an NVIDIA card and ``nvcc``; skips elsewhere (the kernels have no CPU
 mode: a CPU tensor takes the plain version).  Imports nothing of JAX, so it
@@ -260,6 +260,36 @@ def test_extrema_kernels_equal_plain_at_the_cells_shapes(cell_octaves,
     assert [c for _, c, _ in seen] == [4096, 2048, 1024, 512]
     for dog, cap_cand, cap_kp in seen:
         assert _extrema_both(dog, cap_cand, cap_kp, cfg).valid.any()
+
+
+@pytest.mark.parametrize("banded", [False, True])
+def test_lm_on_card_matches_host_c_routine(card, banded):
+    """The pair-major LM on card tensors (the torch chain) against the same
+    problem on CPU tensors (the C routine, ``camera/ba_pairs.py``): the same
+    iterations, parameters within the card-against-host tolerance of
+    ``chip_smoke.py`` (rel 1e-6), and no call into C from the card."""
+    from openpano_torch.camera import ba_pairs
+    from openpano_torch.camera import bundle_adjuster as tba
+
+    from test_torch_ba_pairs import _problem
+
+    params, prob, n = _problem(7, n=5)
+    if banded:
+        keep = ((prob.cam_from - prob.cam_to) == 1) | (
+            (prob.cam_to == 0) & (prob.cam_from == n - 1))
+        prob = tba.BAPairProblem(*(t[keep] for t in prob))
+    kw = dict(adaptive=True, max_iter=40, banded=banded)
+    p = torch.from_numpy(params)
+    host, it_host = tba.ba_optimize_pairs(p, prob, n // 2, n, 5.0, **kw)
+    before = ba_pairs.calls
+    on_card = tba.BAPairProblem(*(t.to(card) for t in prob))
+    got, it_card = tba.ba_optimize_pairs(p.to(card), on_card, n // 2, n, 5.0,
+                                         **kw)
+    assert ba_pairs.calls == before
+    assert it_card == it_host > 3
+    got = got.cpu().numpy()
+    want = host.numpy()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
 
 
 def test_cylinder_multiband_stitch_card_equals_cpu(card):
