@@ -318,10 +318,7 @@ def _debug_blend_dumps(imgs, plan, dev):
         sel = plan.items[:, 0] == i
         if not sel.any():
             continue
-        sub = plan._replace(
-            items=plan.items[sel],
-            hulls=tuple(h for h, s in zip(plan.hulls, sel) if s),
-        )
+        sub = plan._replace(items=plan.items[sel])
         canvas = _host(blend(src, sub, ordered=False, multiband=0))
         _write(f"blended-{i:02d}.jpg", np.where(canvas < 0, 1.0, canvas))
 

@@ -1,8 +1,10 @@
 """Polygons on the host (numpy): convex hull, area, point-in-polygon.
 
 Andrew's monotone chain (reference: lib/polygon.cc:17-46), as in
-``openpano_tpu/geometry/polygon.py``; the render plan keeps one hull per
-item so that the blender can skip tiles an item never touches.
+``openpano_tpu/geometry/polygon.py``, whose render plan keeps one convex
+hull per item to skip tiles an item never touches.  The port's blends run
+one slab per item and its render plan keeps no hull: nothing in the port
+calls these.
 """
 
 from __future__ import annotations

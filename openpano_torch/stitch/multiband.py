@@ -346,8 +346,8 @@ def blend_multiband_host_stream(imgs: np.ndarray, plan: RenderPlan,
     """Multiband blend of an image stack that stays in host memory, on one
     device (``multiband.blend_multiband_host_stream`` there).  Render items
     are assigned to ``groups`` column bands by their RoI origin
-    (``_tile_jobs(exact=True, item_slabs=True)``, strip width >= Rw, so an
-    item's RoI spills into the next band at most).  Two passes over the
+    (``_tile_jobs(exact=True)``, strip width >= Rw, so an item's RoI spills
+    into the next band at most).  Two passes over the
     bands, each uploading only a band's images:
       1. the seam: every item's first-level weights fold into one canvas
          frame of (max weight, min item id), the in-memory first-attainer
@@ -368,8 +368,7 @@ def blend_multiband_host_stream(imgs: np.ndarray, plan: RenderPlan,
 
     dev = resolve_device(device)
     rh, rw = _roi_sizes(plan)
-    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(
-        plan, groups, item_slabs=True, exact=True)
+    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, groups, exact=True)
     assert G == groups and SW >= rw, (G, groups, SW, rw)
 
     maxw = torch.zeros(Hp, Wp + rw, dtype=torch.float32, device=dev)
@@ -404,9 +403,9 @@ def blend_multiband_sharded(imgs, plan: RenderPlan, band_level: int,
     """The multiband blend over the ranks of ``mesh``, one canvas column band
     each (``multiband.blend_multiband_sharded`` there), on the bands and
     band step of the host stream.  Rank g takes the render items whose RoI
-    origin lies in its band (``_tile_jobs(exact=True, item_slabs=True)``,
-    SW >= Rw, so an item spills into band g + 1 at most) and uploads (or
-    gathers) only their images.
+    origin lies in its band (``_tile_jobs(exact=True)``, SW >= Rw, so an
+    item spills into band g + 1 at most) and uploads (or gathers) only
+    their images.
 
       1. The seam: rank g folds its items into a [Hp, SW + Rw] frame of (max
          weight, min item id), sends the spill columns right, folds the
@@ -429,8 +428,7 @@ def blend_multiband_sharded(imgs, plan: RenderPlan, band_level: int,
 
     nd, g, dev = mesh.size(), mesh.get_local_rank(), mesh_device(mesh)
     rh, rw = _roi_sizes(plan)
-    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(
-        plan, nd, item_slabs=True, exact=True)
+    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, nd, exact=True)
     assert G == nd and SW >= rw, (G, nd, SW, rw)
     jobs = band_jobs[g]
     org = jobs[2].astype(np.int64) - [g * SW, 0]         # strip-local

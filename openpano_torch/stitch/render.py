@@ -30,17 +30,7 @@ in-memory jobs in column bands and, once band g has run, finalizes strip g
 to u8 on the device and starts its download while later bands compute: as
 the download codec's planes (``io.wirecodec.CodedFetch``, under
 ``OPENPANO_CODED_DOWNLOAD=1``, the default) or as raw RGBA.  It equals
-``blend_linear`` followed by ``f32_to_u8`` bit for bit.  ``packed_gather``
-(``OPENPANO_PACKED_GATHER=1`` in the stitcher) samples an R|G|B|valid int32
-image instead of the x-paired f32 one: exact for u8 sources up to the
-order of the lerp, so within one u8 level.
-
-Knobs, read at each call: ``OPENPANO_TILE_H`` / ``OPENPANO_TILE_W`` (256
-each, as in the JAX package) size the tile jobs of ``item_slabs=False``;
-``OPENPANO_BLEND_GRID=1`` (off by default) replaces the exact inverse map
-of every linear blend (in memory, streamed, host stream, sharded) with
-``_inverse_map_grid``: exact at the corners of a 16 x 16 px grid, bilinear
-in between.
+``blend_linear`` followed by ``f32_to_u8`` bit for bit.
 """
 
 from __future__ import annotations
@@ -51,35 +41,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..geometry.polygon import convex_hull
 from ..ops.imgproc import INVALID, bilinear_prologue
 from ..utils.timer import span
 from .projection import PROJECTIONS
 
 BLEND_GROUPS = 4
-_GS = 16   # the grid map's cell, in canvas px
-# the grid map's canvas against the exact map's where both are valid, as
-# tests/test_torch_tools.py measured it on a 5-view spherical plan (focal
-# 558 px): largest 0.313 (a hard texture edge), mean 7.6e-4
-GRID_MAX_ABS = 0.35
-GRID_MEAN_ABS = 1e-3
-
-
-def tile_size() -> tuple[int, int]:
-    """(TH, TW) of the tile jobs: ``OPENPANO_TILE_H`` / ``OPENPANO_TILE_W``,
-    256 each unset.  A value below 1 raises."""
-    out = []
-    for name in ("OPENPANO_TILE_H", "OPENPANO_TILE_W"):
-        v = int(os.environ.get(name, "256"))
-        if v < 1:
-            raise ValueError(f"{name}={v}: must be at least 1")
-        out.append(v)
-    return tuple(out)
-
-
-def blend_grid() -> bool:
-    """``OPENPANO_BLEND_GRID=1``: the linear blends take the grid map."""
-    return os.environ.get("OPENPANO_BLEND_GRID", "0") == "1"
 
 
 class RenderPlan(NamedTuple):
@@ -95,8 +61,6 @@ class RenderPlan(NamedTuple):
     items: np.ndarray        # [M,5] (img, x0,y0,x1,y1) render items; an image
                              # whose angular span crosses the +-pi seam
                              # becomes one item per canvas-edge strip
-    hulls: tuple             # per-item convex hull of the projected border
-                             # in canvas px, [K,2] float arrays
 
 
 def _np_homo2proj(proj: str, h: np.ndarray) -> np.ndarray:
@@ -160,7 +124,6 @@ def plan_render(homos: np.ndarray, whs: np.ndarray, identity_idx: int,
     size = ((proj_max - proj_min) / resolution).astype(int)
 
     items = []
-    hulls = []
     for i in range(n):
         tl = ((per_min[i] - proj_min) / resolution).astype(int)
         br = ((per_max[i] - proj_min) / resolution).astype(int)
@@ -177,10 +140,8 @@ def plan_render(homos: np.ndarray, whs: np.ndarray, identity_idx: int,
                 sbr = ((smax - proj_min) / resolution).astype(int)
                 items.append([i, stl[0], stl[1],
                               min(sbr[0], size[0]), min(sbr[1], size[1])])
-                hulls.append(convex_hull((pp[sel] - proj_min) / resolution))
         else:
             items.append([i, *ranges[i].astype(int)])
-            hulls.append(convex_hull((pp - proj_min) / resolution))
 
     return RenderPlan(
         proj=proj,
@@ -193,58 +154,26 @@ def plan_render(homos: np.ndarray, whs: np.ndarray, identity_idx: int,
         out_h=int(size[1]),
         ranges=ranges.astype(np.int32),
         items=np.asarray(items, np.int32).reshape(-1, 5),
-        hulls=tuple(hulls),
     )
 
 
-def _poly_rect_intersects(poly: np.ndarray, x0, y0, x1, y1,
-                          margin=8.0) -> bool:
-    """Convex polygon vs axis-aligned rect (separating axes); the rect is
-    dilated by ``margin`` px to absorb the sagitta of the sampled hull."""
-    x0, y0, x1, y1 = x0 - margin, y0 - margin, x1 + margin, y1 + margin
-    if poly.shape[0] < 3:
-        px0, py0 = poly.min(0)
-        px1, py1 = poly.max(0)
-        return not (px1 < x0 or px0 > x1 or py1 < y0 or py0 > y1)
-    if poly[:, 0].max() < x0 or poly[:, 0].min() > x1:
-        return False
-    if poly[:, 1].max() < y0 or poly[:, 1].min() > y1:
-        return False
-    corners = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
-    nv = poly.shape[0]
-    edges = poly[(np.arange(nv) + 1) % nv] - poly
-    normals = np.stack([-edges[:, 1], edges[:, 0]], -1)       # [E,2]
-    pp = normals @ poly.T                                     # [E,V]
-    pc = normals @ corners.T                                  # [E,4]
-    sep = (pp.max(1) < pc.min(1)) | (pp.min(1) > pc.max(1))
-    return not sep.any()
-
-
-def _tile_jobs(plan: RenderPlan, groups: int, TH: int | None = None,
-               TW: int | None = None, item_slabs: bool = True,
-               exact: bool = False):
+def _tile_jobs(plan: RenderPlan, groups: int, exact: bool = False):
     """Jobs partitioned into ``groups`` column bands by x-origin (a band-g
-    job never writes columns < g*SW).  ``item_slabs=True``: one job per
-    render item sized to the largest item bbox (TH/TW ignored); otherwise
-    each item's bbox is covered by [TH, TW] tiles its hull touches (TH / TW
-    unset: ``tile_size()``).
+    job never writes columns < g*SW): one job per render item, a [TH, TW]
+    slab at the item's bbox origin sized to the largest item bbox, with
+    SW >= TW, so that a band-g job spills into strip g+1 at most.
 
     ``exact=True`` (the banded host-stream blends) keeps G == groups even
-    when bands come out empty and forces SW >= TW, so that a band-g job
-    spills into strip g+1 at most; otherwise G drops to 1 below
-    2 * groups items and shrinks until the last strip is non-empty.
+    when bands come out empty; otherwise G drops to 1 below 2 * groups
+    items and shrinks until the last strip is non-empty.
 
     Returns (G, SW, Hp, Wp, TH, TW, band_jobs), band_jobs[g] =
     (img [J] int32, bbox [J,4] f32, origin [J,2] int32, item [J] int32),
-    as the JAX package's ``_tile_jobs``."""
+    as the JAX package's ``_tile_jobs`` in its one-slab-per-item layout."""
     it = plan.items
     r = it[:, 1:5]
-    dh, dw = tile_size()
-    TH = dh if TH is None else TH
-    TW = dw if TW is None else TW
-    if item_slabs:
-        TH = -(-int(np.maximum(r[:, 3] - r[:, 1], 1).max()) // 8) * 8
-        TW = -(-int(np.maximum(r[:, 2] - r[:, 0], 1).max()) // 128) * 128
+    TH = -(-int(np.maximum(r[:, 3] - r[:, 1], 1).max()) // 8) * 8
+    TW = -(-int(np.maximum(r[:, 2] - r[:, 0], 1).max()) // 128) * 128
     oy_max = -(-plan.out_h // 8) * 8
     ox_max = -(-plan.out_w // 128) * 128
     Hp = oy_max + TH
@@ -252,8 +181,7 @@ def _tile_jobs(plan: RenderPlan, groups: int, TH: int | None = None,
 
     G = groups if (exact or len(it) >= 2 * groups) else 1
     SW = -(-(-(-Wp // G)) // 128) * 128  # ceil(Wp/G) rounded up to 128
-    if exact or item_slabs:
-        SW = max(SW, -(-TW // 128) * 128)  # one job spills <= one strip
+    SW = max(SW, TW)  # one job spills <= one strip
     if not exact:
         while (G - 1) * SW >= Wp:  # last strip must be non-empty
             G -= 1
@@ -261,22 +189,10 @@ def _tile_jobs(plan: RenderPlan, groups: int, TH: int | None = None,
 
     jobs: list[list[tuple]] = [[] for _ in range(G)]
     for s in range(len(it)):
-        x0, y0, x1, y1 = r[s]
-        if item_slabs:
-            ox = min(max(int(x0), 0), ox_max)
-            oy = min(max(int(y0), 0), oy_max)
-            jobs[min(ox // SW, G - 1)].append((it[s, 0], r[s], (ox, oy), s))
-            continue
-        hull = plan.hulls[s] if plan.hulls else None
-        for oy in range(max(int(y0), 0), max(int(min(y1, plan.out_h)), 0), TH):
-            oy = min(oy, oy_max)
-            for ox in range(max(int(x0), 0),
-                            max(int(min(x1, plan.out_w)), 0), TW):
-                ox = min(ox, ox_max)
-                if hull is not None and not _poly_rect_intersects(
-                        hull, ox, oy, ox + TW, oy + TH):
-                    continue
-                jobs[min(ox // SW, G - 1)].append((it[s, 0], r[s], (ox, oy), s))
+        x0, y0 = r[s, :2]
+        ox = min(max(int(x0), 0), ox_max)
+        oy = min(max(int(y0), 0), oy_max)
+        jobs[min(ox // SW, G - 1)].append((it[s, 0], r[s], (ox, oy), s))
 
     band_jobs = []
     for band in jobs:
@@ -314,39 +230,6 @@ def _sample_bilinear_paired(img6: torch.Tensor, y: torch.Tensor,
     return torch.where(valid[..., None], color, INVALID), valid
 
 
-def pack_imgs_u8(imgs: torch.Tensor) -> torch.Tensor:
-    """[N, H, W, 3] f32 in [0, 1] (INVALID < 0 = empty) -> [N, H, W] int32
-    with R | G | B | valid bytes, 0 where empty: one element a bilinear
-    tap.  Exact for u8 sources (u8 -> f32 / 255 -> u8 round-trips)."""
-    valid = imgs[..., 0] >= 0
-    u8 = torch.round(torch.clamp(imgs, 0.0, 1.0) * 255.0).to(torch.int32)
-    packed = (u8[..., 0] | (u8[..., 1] << 8) | (u8[..., 2] << 16)
-              | (valid.to(torch.int32) << 24))
-    return torch.where(valid, packed, 0)
-
-
-def _sample_bilinear_packed(img_i32: torch.Tensor, y: torch.Tensor,
-                            x: torch.Tensor):
-    """Bilinear sampling over an R|G|B|valid-packed int32 image
-    (``pack_imgs_u8``): (color [..., 3], valid [...]); a sample is valid
-    when it is in bounds and its four taps are."""
-    h, w = img_i32.shape[0], img_i32.shape[1]
-    inb, iy, ix, ry, rx = bilinear_prologue(h, w, y, x)
-    p00 = img_i32[iy, ix]
-    p10 = img_i32[iy + 1, ix]
-    p01 = img_i32[iy, ix + 1]
-    p11 = img_i32[iy + 1, ix + 1]
-    ok = inb & (((p00 & p10 & p01 & p11) >> 24) > 0)
-
-    def rgb(p):
-        return torch.stack([p & 0xFF, (p >> 8) & 0xFF, (p >> 16) & 0xFF],
-                           -1).to(torch.float32) / 255.0
-
-    color = (rgb(p00) * (1 - ry) * (1 - rx) + rgb(p10) * ry * (1 - rx)
-             + rgb(p01) * (1 - ry) * rx + rgb(p11) * ry * rx)
-    return color, ok
-
-
 def _inverse_map(proj2homo, hinv, wh, cx, cy):
     """(sx, sy, z) [len(cy), len(cx)]: the canvas points (cx, cy) in
     projection units through proj2homo, the 3x3 inverse map and the
@@ -362,47 +245,14 @@ def _inverse_map(proj2homo, hinv, wh, cx, cy):
     return ret[0] / zsafe + wh[0] * 0.5, ret[1] / zsafe + wh[1] * 0.5, z
 
 
-def _inverse_map_grid(proj2homo, hinv, wh, ox: int, oy: int, res, proj_min,
-                      TH: int, TW: int):
-    """(sx, sy, z) [TH, TW] of the job at canvas (ox, oy), the JAX
-    package's ``_inverse_map_grid``: the exact map at the corners of
-    ``_GS`` px cells, bilinear in between (an error of about GS^2 / (8 f)
-    px at focal f).  z only feeds the z > 0 test, and interpolated across a
-    sign change it would let garbage coordinates through, so each cell
-    takes the least z of its corners.  A side that is no multiple of
-    ``_GS`` (the JAX package's reshape refuses it) is covered by whole
-    cells and cut."""
-    dev = hinv.device
-    ngy, ngx = -(-TH // _GS) + 1, -(-TW // _GS) + 1
-    gx = ox + torch.arange(ngx, dtype=torch.float32, device=dev) * _GS
-    gy = oy + torch.arange(ngy, dtype=torch.float32, device=dev) * _GS
-    sxg, syg, zg = _inverse_map(proj2homo, hinv, wh,
-                                gx * res[0] + proj_min[0],
-                                gy * res[1] + proj_min[1])
-    f = torch.arange(_GS, dtype=torch.float32, device=dev) / _GS
-    fy, fx = f[:, None, None, None], f[None, :, None, None]
-
-    def up(g):
-        v = (g[:-1, :-1] * (1 - fy) * (1 - fx) + g[:-1, 1:] * (1 - fy) * fx
-             + g[1:, :-1] * fy * (1 - fx) + g[1:, 1:] * fy * fx)
-        return v.permute(2, 0, 3, 1).reshape((ngy - 1) * _GS,
-                                             (ngx - 1) * _GS)[:TH, :TW]
-
-    zc = torch.minimum(torch.minimum(zg[:-1, :-1], zg[:-1, 1:]),
-                       torch.minimum(zg[1:, :-1], zg[1:, 1:]))
-    z = zc.repeat_interleave(_GS, 0).repeat_interleave(_GS, 1)[:TH, :TW]
-    return up(sxg), up(syg), z
-
-
 def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
               imgs6: torch.Tensor, hinvs: torch.Tensor, whs: torch.Tensor,
               jobs, plan: RenderPlan, ordered: bool, TH: int, TW: int,
               x0: int = 0):
     """Add the jobs ``(img, bbox, origin, item)`` in their order into the
     (color [*, *, 3], weight) f32 accumulators, whose column 0 is canvas
-    column ``x0``.  ``img`` indexes ``imgs6`` (x-paired, ``pair_imgs_x``,
-    or [*, H, W] int32 from ``pack_imgs_u8``), ``hinvs`` [*, 3, 3] and
-    ``whs`` [*, 2]."""
+    column ``x0``.  ``img`` indexes ``imgs6`` (x-paired, ``pair_imgs_x``),
+    ``hinvs`` [*, 3, 3] and ``whs`` [*, 2]."""
     dev = imgs6.device
     _, proj2homo = PROJECTIONS[plan.proj]
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -410,22 +260,15 @@ def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
     proj_min, res = f32(plan.proj_min), f32(plan.resolution)
     t_h = torch.arange(TH, dtype=torch.float32, device=dev)
     t_w = torch.arange(TW, dtype=torch.float32, device=dev)
-    grid = blend_grid()
     idx, rng, org = jobs[0], jobs[1], jobs[2]
     for k in range(len(idx)):
         i, (ox, oy) = int(idx[k]), (int(org[k, 0]), int(org[k, 1]))
         bx0, by0, bx1, by1 = (float(v) for v in rng[k])
         hinv, wh = hinvs[i], whs[i]
-        if grid:
-            sx, sy, z = _inverse_map_grid(proj2homo, hinv, wh, ox, oy, res,
-                                          proj_min, TH, TW)
-        else:
-            sx, sy, z = _inverse_map(proj2homo, hinv, wh,
-                                     (ox + t_w) * res[0] + proj_min[0],
-                                     (oy + t_h) * res[1] + proj_min[1])
-        sample = (_sample_bilinear_packed if imgs6.dim() == 3
-                  else _sample_bilinear_paired)
-        color, ok = sample(imgs6[i], sy, sx)
+        sx, sy, z = _inverse_map(proj2homo, hinv, wh,
+                                 (ox + t_w) * res[0] + proj_min[0],
+                                 (oy + t_h) * res[1] + proj_min[1])
+        color, ok = _sample_bilinear_paired(imgs6[i], sy, sx)
         w = 0.5 - torch.abs(sx / wh[0] - 0.5)
         if not ordered:  # blend both directions (blender.cc:33-35)
             w = w * (0.5 - torch.abs(sy / wh[1] - 0.5))
@@ -441,16 +284,14 @@ def _run_jobs(color_acc: torch.Tensor, w_acc: torch.Tensor,
 
 
 def _band_runner(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,
-                 packed_gather: bool, item_slabs: bool, min_width: int = 0):
+                 min_width: int = 0):
     """The in-memory blend's jobs in ``BLEND_GROUPS`` column bands: (G, SW,
     the (color [Hp, Wp, 3], weight [Hp, Wp]) f32 accumulators, at least
     ``min_width`` wide, run(g), which adds band g's jobs into them)."""
-    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, BLEND_GROUPS,
-                                                  item_slabs=item_slabs)
+    G, SW, Hp, Wp, TH, TW, band_jobs = _tile_jobs(plan, BLEND_GROUPS)
     Wp = max(Wp, min_width)
     dev = imgs.device
-    imgs = imgs.to(torch.float32)
-    src = pack_imgs_u8(imgs) if packed_gather else pair_imgs_x(imgs)
+    src = pair_imgs_x(imgs.to(torch.float32))
     hinvs = torch.as_tensor(plan.homo_invs, dtype=torch.float32, device=dev)
     whs = torch.as_tensor(plan.whs, dtype=torch.float32, device=dev)
     color_acc = torch.zeros(Hp, Wp, 3, dtype=torch.float32, device=dev)
@@ -470,16 +311,12 @@ def _normalize(color: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.where(has[..., None], out, INVALID)
 
 
-def blend_linear(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,
-                 packed_gather: bool = False,
-                 item_slabs: bool = True) -> torch.Tensor:
+def blend_linear(imgs: torch.Tensor, plan: RenderPlan,
+                 ordered: bool) -> torch.Tensor:
     """imgs: [N, H, W, 3] float in [0, 1] (INVALID marks empty pixels).
     Returns the [out_h, out_w, 3] f32 canvas, INVALID where nothing was
-    rendered.  ``packed_gather`` samples the ``pack_imgs_u8`` form;
-    ``item_slabs=False`` covers each item's bbox with 256x256 tiles its
-    hull touches instead of one slab per item."""
-    G, _, color_acc, w_acc, run = _band_runner(imgs, plan, ordered,
-                                               packed_gather, item_slabs)
+    rendered."""
+    G, _, color_acc, w_acc, run = _band_runner(imgs, plan, ordered)
     for g in range(G):
         run(g)
     return _normalize(color_acc[: plan.out_h, : plan.out_w],
@@ -537,9 +374,7 @@ def _strip_u8_i32(color_acc: torch.Tensor, w_acc: torch.Tensor, start: int,
 
 
 def blend_linear_stream_u8(imgs: torch.Tensor, plan: RenderPlan,
-                           ordered: bool, groups: int = 4,
-                           packed_gather: bool = False,
-                           item_slabs: bool = True) -> np.ndarray:
+                           ordered: bool, groups: int = 4) -> np.ndarray:
     """The linear blend straight to a host RGBA uint8 canvas [out_h, out_w,
     4] (alpha 1 where rendered), equal to ``blend_linear`` then
     ``f32_to_u8`` bit for bit.
@@ -558,9 +393,9 @@ def blend_linear_stream_u8(imgs: torch.Tensor, plan: RenderPlan,
     from ..io.transfer import HostCopy
     from ..io.wirecodec import CodedFetch, count
 
-    G, SW = _tile_jobs(plan, groups, item_slabs=item_slabs)[:2]
-    GB, SWB, color_acc, w_acc, run = _band_runner(
-        imgs, plan, ordered, packed_gather, item_slabs, min_width=G * SW)
+    G, SW = _tile_jobs(plan, groups)[:2]
+    GB, SWB, color_acc, w_acc, run = _band_runner(imgs, plan, ordered,
+                                                  min_width=G * SW)
     coded = os.environ.get("OPENPANO_CODED_DOWNLOAD", "1") == "1"
     strips = []
     for b in range(GB):
@@ -760,18 +595,12 @@ def blend(imgs: torch.Tensor, plan: RenderPlan, ordered: bool,
           multiband: int) -> torch.Tensor:
     """Blender dispatch (ConnectedImages::blend, stitcher_image.cc:131-136):
     the multiband blender with ``multiband`` levels when it is > 0, else
-    the linear one (``OPENPANO_PACKED_GATHER=1``: on the packed form)."""
+    the linear one."""
     if multiband > 0:
         from .multiband import blend_multiband
 
         return blend_multiband(imgs, plan, multiband)
-    return blend_linear(imgs, plan, ordered, packed_gather=packed_gather())
-
-
-def packed_gather() -> bool:
-    """Whether the linear blend samples the packed int32 form:
-    ``OPENPANO_PACKED_GATHER=1`` (off by default)."""
-    return os.environ.get("OPENPANO_PACKED_GATHER", "0") == "1"
+    return blend_linear(imgs, plan, ordered)
 
 
 def f32_to_u8(canvas: torch.Tensor):

@@ -20,8 +20,7 @@ planes upload, and the blend streams column bands of it
 ``multiband.blend_multiband_host_stream``).  With u8 output, no multiband
 and ``STREAM_BLEND`` (the default), an in-memory blend streams its finished
 strips to the host (``render.blend_linear_stream_u8``, through the download
-codec unless ``OPENPANO_CODED_DOWNLOAD=0``); ``OPENPANO_PACKED_GATHER=1``
-samples the packed int32 images in the linear blend.
+codec unless ``OPENPANO_CODED_DOWNLOAD=0``).
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ from ..utils import prng
 from ..utils.debug import assert_finite
 from ..utils.timer import span, total_timer
 from .render import blend, blend_linear_host_stream, blend_linear_sharded, \
-    blend_linear_stream_u8, f32_to_u8, packed_gather, plan_render
+    blend_linear_stream_u8, f32_to_u8, plan_render
 from .stitcherbase import DeferredImages, HostImages, compute_features, \
     compute_features_sharded, upload_and_compute_features
 
@@ -479,9 +478,8 @@ def _stitch_core(imgs, feats: Features | None, whs_np: np.ndarray,
                 # its strips download while later bands render
                 # (``blend.download`` inside ``blend.render``)
                 with span("blend.render"):
-                    rgba = blend_linear_stream_u8(
-                        src, plan, cfg.ORDERED_INPUT,
-                        packed_gather=packed_gather())
+                    rgba = blend_linear_stream_u8(src, plan,
+                                                  cfg.ORDERED_INPUT)
                 result = (rgba[..., :3], rgba[..., 3] > 0)
             else:
                 with span("blend.render"):

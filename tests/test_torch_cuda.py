@@ -674,34 +674,3 @@ def test_match_precision_high_on_card(card, monkeypatch, capsys):
               f"keypoints, 1-NN moved {moved_1nn}, 2nd-NN moved {moved_2nn}; "
               f"matches {len(a)} / {len(b)}, {len(a ^ b)} differ")
     assert len(a) > 100 and len(b) > 100
-
-
-def test_grid_map_within_its_bound_on_card(card, monkeypatch):
-    """OPENPANO_BLEND_GRID=1 on the card, the CPU test's 5-view spherical
-    plan: against the exact map within ``render.GRID_MAX_ABS`` /
-    ``GRID_MEAN_ABS``, and within 1e-4 of the CPU's grid-mode blend."""
-    from openpano_torch.stitch import render
-    from openpano_torch.synth import procedural_scene_large, render_views
-
-    n = 5
-    views, truth = render_views(procedural_scene_large(600, 2400, seed=0), n,
-                                out_w=320, out_h=240, hfov_deg=32,
-                                overlap=0.5, seed=2)
-    f = truth["focal_px"]
-    homos = [np.array([[np.cos(t), 0, np.sin(t)], [0, 1, 0],
-                       [-np.sin(t), 0, np.cos(t)]]).T
-             @ np.linalg.inv(np.diag([f, f, 1.0])) for t in truth["yaws"]]
-    plan = render.plan_render(np.stack(homos),
-                              np.repeat([[320.0, 240.0]], n, 0), n // 2,
-                              "spherical", 8000)
-    src = torch.from_numpy(views.astype(np.float32))
-    exact = render.blend_linear(src.to(card), plan, False).cpu().numpy()
-    monkeypatch.setenv("OPENPANO_BLEND_GRID", "1")
-    grid = render.blend_linear(src.to(card), plan, False).cpu().numpy()
-    cpu = render.blend_linear(src, plan, False).numpy()
-    vg, ve, vc = (c[..., 0] >= 0 for c in (grid, exact, cpu))
-    d = np.abs(grid - exact)[vg & ve]
-    assert d.max() < render.GRID_MAX_ABS and d.mean() < render.GRID_MEAN_ABS
-    assert (vg != ve).mean() < 1e-3
-    assert (vg == vc).mean() > 0.9999
-    assert np.abs(grid - cpu)[vg & vc].max() < 1e-4

@@ -341,6 +341,22 @@ def _chain(n, step=150.0):
     return homos / (0.5 * (W + H))
 
 
+def _ring(n, step, f=0.5 * (W + H)):
+    """n views of a camera turning about y by ``step`` radians, focal f."""
+    out = []
+    for k in range(n):
+        th = step * (k - n // 2)
+        R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                      [-np.sin(th), 0, np.cos(th)]])
+        out.append(R.T @ np.linalg.inv(np.diag([f, f, 1.0])))
+    return np.stack(out)
+
+
+def _homos(proj, n, step):
+    """The flat chain, or for a projection of angles the turning ring."""
+    return _chain(n) if proj == "flat" else _ring(n, step)
+
+
 @pytest.mark.parametrize("n", [3, 9])
 def test_render_plan_and_jobs_match(n):
     homos, whs = _chain(n), np.array([[W, H]] * n)
@@ -348,32 +364,60 @@ def test_render_plan_and_jobs_match(n):
     jp = jrender.plan_render(homos, whs, n // 2, "flat", 8000)
     for f in tp._fields:
         a, b = getattr(tp, f), getattr(jp, f)
-        if f == "hulls":
-            for x, y in zip(a, b):
-                np.testing.assert_array_equal(x, y)
-        elif isinstance(a, np.ndarray):
+        if isinstance(a, np.ndarray):
             np.testing.assert_array_equal(a, b)
         else:
             assert a == b
-    for slabs in (True, False):
-        tj = trender._tile_jobs(tp, 4, item_slabs=slabs)
-        jj = jrender._tile_jobs(jp, 4, item_slabs=slabs)
-        assert tj[:6] == jj[:6]
-        for tb, jb in zip(tj[6], jj[6]):
-            for x, y in zip(tb, jb):
-                np.testing.assert_array_equal(x, y)
+    tj = trender._tile_jobs(tp, 4)
+    jj = jrender._tile_jobs(jp, 4, item_slabs=True)
+    assert tj[:6] == jj[:6]
+    for tb, jb in zip(tj[6], jj[6]):
+        for x, y in zip(tb, jb):
+            np.testing.assert_array_equal(x, y)
 
 
-def test_blend_linear_matches():
+@pytest.mark.parametrize("proj", ["flat", "spherical", "cylindrical"])
+@pytest.mark.parametrize("exact", [False, True])
+def test_item_slab_jobs_cover_their_items(proj, exact):
+    """One job per render item (the ring wraps past 360 degrees, so some
+    views split into two items), its slab covering the item's box clipped
+    to the canvas, and a band-g job within columns [g*SW, (g+2)*SW)."""
+    n = 9
+    homos, whs = _homos(proj, n, 0.75), np.array([[W, H]] * n)
+    plan = trender.plan_render(homos, whs, n // 2, proj, 8000)
+    if proj != "flat":
+        assert len(plan.items) > n
+    G, SW, Hp, Wp, TH, TW, bands = trender._tile_jobs(plan, 4, exact=exact)
+    assert G == 4 if exact else 1 < G <= 4
+    assert SW >= TW and Wp == G * SW
+    seen = np.concatenate([b[3] for b in bands])
+    np.testing.assert_array_equal(np.sort(seen), np.arange(len(plan.items)))
+    for g, (img, bbox, org, item) in enumerate(bands):
+        np.testing.assert_array_equal(img, plan.items[item, 0])
+        np.testing.assert_array_equal(bbox, plan.items[item, 1:5])
+        ox, oy = org[:, 0], org[:, 1]
+        x0, y0, x1, y1 = plan.items[item, 1:5].T
+        assert (ox <= np.maximum(x0, 0)).all()
+        assert (oy <= np.maximum(y0, 0)).all()
+        assert (ox + TW >= np.minimum(x1, plan.out_w)).all()
+        assert (oy + TH >= np.minimum(y1, plan.out_h)).all()
+        assert (ox >= g * SW).all() and (ox + TW <= (g + 2) * SW).all()
+        assert (oy + TH <= Hp).all()
+
+
+@pytest.mark.parametrize("proj", ["flat", "spherical", "cylindrical"])
+@pytest.mark.parametrize("ordered", [True, False])
+def test_blend_linear_matches(proj, ordered):
     n = 5
     imgs = np.stack([procedural_scene_large(int(H), int(W), seed=s)
                      for s in range(n)])
-    homos = _chain(n)
+    homos = _homos(proj, n, 0.4)
     homos[:, 0, 1] = 0.002                     # a slight shear resamples
     whs = np.array([[W, H]] * n)
-    plan = trender.plan_render(homos, whs, n // 2, "flat", 500)
-    got = trender.blend_linear(_t(imgs), plan, ordered=True).numpy()
-    want = np.asarray(jrender.blend_linear(jnp.asarray(imgs), plan, True))
+    plan = trender.plan_render(homos, whs, n // 2, proj, 500)
+    got = trender.blend_linear(_t(imgs), plan, ordered=ordered).numpy()
+    want = np.asarray(jrender.blend_linear(jnp.asarray(imgs), plan,
+                                           ordered))
     assert got.shape == want.shape == (plan.out_h, plan.out_w, 3)
     np.testing.assert_array_equal(got[..., 0] >= 0, want[..., 0] >= 0)
     assert np.abs(got - want).max() < 1e-4

@@ -132,8 +132,9 @@ def test_padding_departure_is_the_zero_padding(wrap_plan):
     from openpano_tpu.stitch import render as jrender
 
     u8, tp, rp = wrap_plan
-    j = jmb.blend_multiband(jnp.asarray(u8.astype(np.float32) / 255.0),
-                            jrender.RenderPlan(*tp), 5)
+    jp = jrender.plan_render(tp.homos, tp.whs, len(u8) // 2, tp.proj, 8000)
+    j = jmb.blend_multiband(jnp.asarray(u8.astype(np.float32) / 255.0), jp,
+                            5)
     got, got_m = f32_to_u8(torch.from_numpy(np.array(j)))
     want, want_m = rmb.blend(torch.from_numpy(u8), rp,
                              {**SETTINGS, "MULTIBAND": 5})

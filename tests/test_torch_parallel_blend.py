@@ -70,16 +70,15 @@ def _yaw_homos(yaws, f):
 
 
 def linear_case():
-    """tests/test_parallel.py:83-117's plan over 5 procedural f32 views."""
+    """tests/test_parallel.py:83-117's plan over 5 procedural f32 views:
+    (views, the plan_render arguments)."""
     n = 5
     views, _ = render_views(procedural_scene_large(600, 2400, seed=0), n,
                             out_w=200, out_h=150, hfov_deg=32, overlap=0.55,
                             seed=3)
-    plan = trender.plan_render(_yaw_homos((np.arange(n) - n // 2) * 0.15,
-                                          350.0),
-                               np.repeat([[200.0, 150.0]], n, 0), n // 2,
-                               "spherical", 8000)
-    return views.astype(np.float32), plan
+    args = (_yaw_homos((np.arange(n) - n // 2) * 0.15, 350.0),
+            np.repeat([[200.0, 150.0]], n, 0), n // 2, "spherical", 8000)
+    return views.astype(np.float32), args
 
 
 def strip_case(views):
@@ -98,27 +97,29 @@ def strip_case(views):
 
 def multiband_case():
     """tests/test_torch_host_blend.py's spherical case: 12 u8 views of
-    160x120 over 392 degrees."""
+    160x120 over 392 degrees: (views, the plan_render arguments)."""
     n = 12
     views, truth = render_views(procedural_scene_large(300, 1600, seed=1), n,
                                 out_w=160, out_h=120, hfov_deg=40,
                                 overlap=0.2, seed=2)
-    plan = trender.plan_render(_yaw_homos(truth["yaws"], truth["focal_px"]),
-                               np.repeat([[160.0, 120.0]], n, 0), n // 2,
-                               "spherical", 8000)
-    assert len(plan.items) > n            # the wrap split fired
-    return np.round(views * 255).astype(np.uint8), plan
+    args = (_yaw_homos(truth["yaws"], truth["focal_px"]),
+            np.repeat([[160.0, 120.0]], n, 0), n // 2, "spherical", 8000)
+    return np.round(views * 255).astype(np.uint8), args
 
 
 @pytest.fixture(scope="module")
 def cases():
     """The port's plans (numpy only, so that the ranks unpickle no JAX
-    type; ``jrender.RenderPlan(*plan)`` hands one to the JAX package)."""
-    lin, lin_plan = linear_case()
+    type), and the JAX package's plans of the same arguments."""
+    lin, lin_args = linear_case()
     strip, strip_plan = strip_case(lin)
-    mb, mb_plan = multiband_case()
-    return dict(lin=lin, lin_plan=lin_plan, strip=strip,
-                strip_plan=strip_plan, mb=mb, mb_plan=mb_plan)
+    mb, mb_args = multiband_case()
+    mb_plan = trender.plan_render(*mb_args)
+    assert len(mb_plan.items) > len(mb)   # the wrap split fired
+    return dict(lin=lin, lin_plan=trender.plan_render(*lin_args),
+                lin_jplan=jrender.plan_render(*lin_args), strip=strip,
+                strip_plan=strip_plan, mb=mb, mb_plan=mb_plan,
+                mb_jplan=jrender.plan_render(*mb_args))
 
 
 @pytest.fixture(scope="module")
@@ -158,7 +159,7 @@ def test_linear_sharded_matches_jax_and_in_memory(ranked, cases, world):
                                ordered=False).numpy()
     assert_canvases_agree(got, mem, LINEAR_TOL)
     want = np.asarray(jrender.blend_linear_sharded(
-        jnp.asarray(cases["lin"]), jrender.RenderPlan(*plan), ordered=False,
+        jnp.asarray(cases["lin"]), cases["lin_jplan"], ordered=False,
         mesh=jmake_mesh(world)))
     assert_canvases_agree(got, want, JAX_LINEAR_TOL)
 
@@ -213,7 +214,7 @@ def test_jax_multiband_sharded_departs(cases, multiband_refs):
     """JAX's sharded multiband against JAX's own in-memory blend on this
     plan (its seam halo runs one way); the port's stays on the in-memory
     canvas (test above)."""
-    u8, plan = cases["mb"], jrender.RenderPlan(*cases["mb_plan"])
+    u8, plan = cases["mb"], cases["mb_jplan"]
     src = jnp.asarray(u8.astype(np.float32) / 255.0)
     mem = np.asarray(jmb.blend_multiband(src, plan, 2))
     sharded = np.asarray(jmb.blend_multiband_sharded(src, plan, 2,

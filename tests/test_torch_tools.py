@@ -3,16 +3,8 @@
 - ``OPENPANO_FEATURE_BATCH``: every batch size in {1, 2, 3, 4} gives the
   same Features bit for bit, through ``compute_features`` and through the
   transport (``bench.feature_batch``), and ``feature_shards`` follows it;
-- ``OPENPANO_TILE_H`` / ``OPENPANO_TILE_W``: the port's ``_tile_jobs``
-  under other tile sizes equals the JAX package's with the same sizes;
-- ``OPENPANO_BLEND_GRID``: the port's ``_inverse_map_grid`` equals the JAX
-  package's within 1e-6 relative; its linear blend of a 5-view spherical
-  plan equals the JAX package's grid-mode blend (``render._BLEND_GRID``
-  set by monkeypatch) within the 1e-4 the exact blend is held to; against
-  the exact map it stays under ``render.GRID_MAX_ABS`` / ``GRID_MEAN_ABS``,
-  which this measurement set;
 - ``OPENPANO_MATCH_PRECISION``: every value gives the same matches on the
-  CPU, and an unknown one raises; so does a batch or tile size below 1;
+  CPU, and an unknown one raises; so does a batch size below 1;
 - the tools: ``ba_sweep.reproj_of`` equals the JAX tools' formula on fixed
   cameras; its variants are the JAX tool's; a sweep on a small set runs
   one schedule and one variant, and an unknown knob raises;
@@ -28,16 +20,12 @@ import ast
 import os
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import openpano_tpu  # noqa: F401  (x64 on, as the JAX package runs)
 from openpano_tpu.camera.camera import intrinsic as jintrinsic
-from openpano_tpu.stitch import render as jrender
-from openpano_tpu.stitch.projection import PROJECTIONS as JPROJ
 from openpano_tpu.synth import gt_pair_homography as jgt_pair_homography
 from openpano_torch.bench import ba_sweep, comm_volume, feature_batch, \
     profile_sift, run_test
@@ -46,13 +34,10 @@ from openpano_torch.camera.camera import CameraSet
 from openpano_torch.config import Config
 from openpano_torch.match import matcher as tmatch
 from openpano_torch.parallel.spawn import run_ranks
-from openpano_torch.stitch import render as trender
-from openpano_torch.stitch.projection import PROJECTIONS as TPROJ
 from openpano_torch.stitch.stitcherbase import compute_features, \
     feature_shards
 from openpano_torch.stitch.stitcherbase import feature_batch as \
     feature_batch_knob
-from openpano_torch.synth import procedural_scene_large, render_views
 
 ROOT = Path(__file__).resolve().parent.parent
 CFG = Config(MAX_KP_PER_IMAGE=512, SIFT_WORKING_SIZE=280,
@@ -108,112 +93,6 @@ def test_feature_batch_sweep_through_the_transport(views, ref_features):
         assert key in lines[0]
 
 
-def _spherical_plan(n=5):
-    views, truth = render_views(procedural_scene_large(600, 2400, seed=0), n,
-                                out_w=320, out_h=240, hfov_deg=32,
-                                overlap=0.5, seed=2)
-    f = truth["focal_px"]
-    homos = []
-    for th in truth["yaws"]:
-        R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
-                      [-np.sin(th), 0, np.cos(th)]])
-        homos.append(R.T @ np.linalg.inv(np.diag([f, f, 1.0])))
-    args = (np.stack(homos), np.repeat([[320.0, 240.0]], n, 0), n // 2,
-            "spherical", 8000)
-    return (views.astype(np.float32), trender.plan_render(*args),
-            jrender.plan_render(*args))
-
-
-@pytest.fixture(scope="module")
-def spherical():
-    return _spherical_plan()
-
-
-@pytest.mark.parametrize("th,tw", [(128, 384), (64, 128), (256, 256)])
-@pytest.mark.parametrize("exact", [False, True])
-def test_tile_jobs_follow_the_tile_knobs(spherical, th, tw, exact,
-                                         monkeypatch):
-    _, tp, jp = spherical
-    monkeypatch.setenv("OPENPANO_TILE_H", str(th))
-    monkeypatch.setenv("OPENPANO_TILE_W", str(tw))
-    tj = trender._tile_jobs(tp, 2, item_slabs=False, exact=exact)
-    jj = jrender._tile_jobs(jp, 2, TH=th, TW=tw, item_slabs=False,
-                            exact=exact)
-    assert tj[:6] == jj[:6] and tj[4:6] == (th, tw)
-    for tb, jb in zip(tj[6], jj[6]):
-        for x, y in zip(tb, jb):
-            np.testing.assert_array_equal(x, y)
-
-
-@pytest.mark.parametrize("proj", ["flat", "spherical", "cylindrical"])
-def test_inverse_map_grid_matches_jax(spherical, proj):
-    """Same inputs through both grid maps: within 1e-6 relative (XLA:CPU
-    contracts the map's products; 2.4e-7 measured); a side no multiple of
-    16 is the first rows and columns of the next whole-cell map."""
-    _, plan, _ = spherical
-    f32 = lambda a: np.asarray(a, np.float32)
-    hinv, wh = f32(plan.homo_invs[1]), f32(plan.whs[1])
-    res, pmin = f32(plan.resolution), f32(plan.proj_min)
-    t = torch.from_numpy
-    got = trender._inverse_map_grid(TPROJ[proj][1], t(hinv), t(wh), 96, 32,
-                                    t(res), t(pmin), 256, 256)
-    want = jax.jit(lambda h, w, ox, oy, r, p: jrender._inverse_map_grid(
-        JPROJ[proj][1], h, w, ox, oy, r, p, 256, 256))(
-        hinv, wh, jnp.int32(96), jnp.int32(32), res, pmin)
-    for a, b in zip(got, want):
-        b = np.asarray(b)
-        assert np.abs(a.numpy() - b).max() <= 1e-6 * np.abs(b).max()
-    cut = trender._inverse_map_grid(TPROJ[proj][1], t(hinv), t(wh), 96, 32,
-                                    t(res), t(pmin), 248, 200)
-    for a, b in zip(cut, got):
-        assert torch.equal(a, b[:248, :200])
-
-
-def _valid(canvas):
-    return canvas[..., 0] >= 0
-
-
-def test_grid_blend_matches_jax_grid_blend(spherical, monkeypatch):
-    """The grid-mode linear blend (256 x 256 tiles) against the JAX
-    package's: within 1e-4 where both are valid, the same valid pixels."""
-    imgs, tp, jp = spherical
-    monkeypatch.setattr(jrender, "_BLEND_GRID", True)
-    jrender._blend_group.clear_cache()
-    try:
-        want = np.asarray(jrender.blend_linear(jnp.asarray(imgs), jp,
-                                               ordered=False,
-                                               item_slabs=False))
-    finally:
-        jrender._blend_group.clear_cache()
-    monkeypatch.setenv("OPENPANO_BLEND_GRID", "1")
-    got = trender.blend_linear(torch.from_numpy(imgs), tp, ordered=False,
-                               item_slabs=False).numpy()
-    np.testing.assert_array_equal(_valid(got), _valid(want))
-    both = _valid(got)
-    assert np.abs(got - want)[both].max() < 1e-4
-
-
-@pytest.mark.parametrize("item_slabs", [True, False])
-def test_grid_blend_within_its_bound(spherical, item_slabs, monkeypatch):
-    """Grid against exact map, the port's own blend, both job geometries:
-    largest difference 0.313 and mean 7.6e-4 where both are valid, 30 of
-    238,791 pixels valid in one only (the z and bounds tests on
-    interpolated coordinates); ``render.GRID_MAX_ABS`` and
-    ``GRID_MEAN_ABS`` hold these, and the card's gates use them."""
-    imgs, tp, _ = spherical
-    src = torch.from_numpy(imgs)
-    exact = trender.blend_linear(src, tp, ordered=False,
-                                 item_slabs=item_slabs).numpy()
-    monkeypatch.setenv("OPENPANO_BLEND_GRID", "1")
-    grid = trender.blend_linear(src, tp, ordered=False,
-                                item_slabs=item_slabs).numpy()
-    both = _valid(grid) & _valid(exact)
-    d = np.abs(grid - exact)[both]
-    assert 0 < d.max() < trender.GRID_MAX_ABS
-    assert d.mean() < trender.GRID_MEAN_ABS
-    assert (_valid(grid) != _valid(exact)).mean() < 1e-3
-
-
 def _descriptors(seed, n=2, K=300):
     rng = np.random.default_rng(seed)
     d = rng.normal(size=(n, K, 128)).astype(np.float32)
@@ -246,14 +125,11 @@ def test_unknown_match_precision_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("OPENPANO_FEATURE_BATCH", "0"), ("OPENPANO_FEATURE_BATCH", "-2"),
-    ("OPENPANO_TILE_H", "0"), ("OPENPANO_TILE_W", "-1")])
+    ("OPENPANO_FEATURE_BATCH", "0"), ("OPENPANO_FEATURE_BATCH", "-2")])
 def test_size_knobs_below_one_raise(name, value, monkeypatch):
     monkeypatch.setenv(name, value)
-    read = feature_batch_knob if name == "OPENPANO_FEATURE_BATCH" \
-        else trender.tile_size
     with pytest.raises(ValueError, match=name):
-        read()
+        feature_batch_knob()
 
 
 def _jax_reproj_of(cams, truth, perm, w):

@@ -8,15 +8,17 @@
 - ``blend_linear_stream_u8`` equals the port's ``blend_linear`` followed by
   ``f32_to_u8`` bit for bit at 1, 2 and 4 groups and across the 360 degree
   wrap, coded download on and off; against the JAX package's stream blend
-  at most one u8 level on under 1e-3 of the pixels (torch's and XLA:CPU's
-  f32 sin / cos round apart on a spherical plan, ROADMAP Queue 3); the
-  packed gather within one level on under 1e-3 of the pixels;
+  at 1 to 4 groups at most one u8 level on under 1e-3 of the pixels
+  (torch's and XLA:CPU's f32 sin / cos round apart on a spherical plan,
+  ROADMAP Queue 3);
 - the host stream with its coded band uploads and coded strips equals the
   same run with ``coded_wire=False`` bit for bit;
 - ``stitch`` on a uint8 stack takes the transport (the chroma thread
   released after the features, joined at the blend), and its u8 canvas is
   the same with ``STREAM_BLEND`` on and off, coded download on and off;
-  ``stitch(graph=)`` too;
+  ``stitch(graph=)`` too, and the same again with ``OPENPANO_BLEND_GRID=1``
+  or ``OPENPANO_PACKED_GATHER=1`` set: the blend has one inverse map and
+  one sampler, and reads neither variable;
 - the slice against the JAX package: both packages' ``stitch(graph=)`` on
   the port's match graph, u8 out (JAX's streamed blend and coded strip
   downloads): the same cameras within 1e-6, valid masks agreeing on
@@ -209,37 +211,16 @@ def _close(a, b):
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
 
 
-def test_stream_blend_against_jax():
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
+def test_stream_blend_against_jax(groups):
+    """The JAX package orders its sums by strip count; the port's do not."""
     imgs, plan, jplan = _sweep_plan(np.random.default_rng(44), 12, 60, 80)
     got = trender.blend_linear_stream_u8(torch.from_numpy(imgs), plan,
-                                         ordered=False, groups=2)
+                                         ordered=False, groups=groups)
     want = jrender.blend_linear_stream_u8(jnp.asarray(imgs), jplan,
-                                          ordered=False, groups=2)
+                                          ordered=False, groups=groups)
     assert got.shape == want.shape
     _close(got, want)
-
-
-def test_packed_gather_within_one_level():
-    rng = np.random.default_rng(45)
-    _, plan, _ = _sweep_plan(rng, 10, 48, 64)
-    u8 = rng.integers(0, 256, (10, 48, 64, 3)).astype(np.uint8)
-    src = torch.from_numpy(u8).float() / 255.0
-    ref = _rgba(trender.blend_linear(src, plan, ordered=False))
-    packed = trender.pack_imgs_u8(src)
-    assert packed.dtype == torch.int32 and packed.shape == (10, 48, 64)
-    _close(_rgba(trender.blend_linear(src, plan, ordered=False,
-                                      packed_gather=True)), ref)
-    _close(trender.blend_linear_stream_u8(src, plan, ordered=False, groups=3,
-                                          packed_gather=True), ref)
-
-
-def test_pack_imgs_u8_equals_jax():
-    rng = np.random.default_rng(46)
-    imgs = rng.integers(0, 256, (2, 6, 5, 3)).astype(np.float32) / 255.0
-    imgs[0, 1, 2] = -1.0
-    np.testing.assert_array_equal(
-        trender.pack_imgs_u8(torch.from_numpy(imgs)).numpy(),
-        np.asarray(jrender.pack_imgs_u8(jnp.asarray(imgs))))
 
 
 def test_strip_planes_round_trip_and_equal_jax():
@@ -309,6 +290,21 @@ def test_graph_stitch_stream_blend_on_and_off(views_u8, transport_run,
     monkeypatch.setenv("OPENPANO_CODED_DOWNLOAD", coded)
     got = stitch(views_u8, SMALL.replace(STREAM_BLEND=stream), output="u8",
                  device="cpu", graph=info["graph"])
+    np.testing.assert_array_equal(got[0], canvas)
+    np.testing.assert_array_equal(got[1], valid)
+
+
+@pytest.mark.parametrize("name", ["OPENPANO_BLEND_GRID",
+                                  "OPENPANO_PACKED_GATHER"])
+def test_removed_blend_variables_change_nothing(views_u8, transport_run,
+                                                monkeypatch, name):
+    """The blend has one inverse map and one sampler and reads neither
+    variable: set, each leaves the stitch's u8 canvas the same bit for
+    bit."""
+    (canvas, valid), info, _ = transport_run
+    monkeypatch.setenv(name, "1")
+    got = stitch(views_u8, SMALL, output="u8", device="cpu",
+                 graph=info["graph"])
     np.testing.assert_array_equal(got[0], canvas)
     np.testing.assert_array_equal(got[1], valid)
 
