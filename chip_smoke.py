@@ -6,9 +6,9 @@
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA versions, the card's name and power limit;
-  2. build: the package's CUDA sources (``windows.cu`` and ``extrema.cu``,
-     one nvcc run each), with ptxas's registers, shared memory and spills
-     per kernel;
+  2. build: the package's CUDA sources (``windows.cu``, ``extrema.cu`` and
+     ``ransac.cu``, one nvcc run each), with ptxas's registers, shared
+     memory and spills per kernel;
   3. inputs: the headline set — 38 uint8 views of 1300x867 of a camera
      yawing through a 336 degree sweep (40 degree field of view, 80%
      overlap) over ``procedural_scene_large``, shuffled: the shape of the
@@ -29,7 +29,15 @@ Phases, each fatal on failure:
      alone (arguments cast beforehand), the plain version's time, the
      library call's where one PyTorch call computes the same function, and
      the least time the card could take (the extrema's at octave 0 of the
-     headline's batch);
+     headline's batch); the RANSAC kernel on the pairs each path's
+     matching keeps (all 703 of the headline set, the strip's ring),
+     twice for identical bits, held to a float64 refit of its own inliers
+     (``benchmark.reference.refit``, within the cmu0 cell's ``refit_px``
+     limit) and to the plain chain on the same card tensors (the winner's
+     inlier count, success and inliers equal on all but a flip at the
+     threshold's edge, the transforms within RANSAC_GAP_PX over the
+     inliers; the pairs equal bit for bit reported), timed at the
+     headline's with its least time by operations;
   5. references: a 4-view strip (TRANS), 5 rotating views (the default
      Config) and a 6-view sweep in CYLINDER mode with MULTIBAND=2 stitched
      on the card and on the CPU (the plain versions, which the tests hold
@@ -167,6 +175,7 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from benchmark import reference as bench_ref  # noqa: E402
 from benchmark import reference_multiband  # noqa: E402
 from openpano_torch import Config, stitch_images  # noqa: E402
 from openpano_torch import _build, cli, native  # noqa: E402
@@ -181,6 +190,7 @@ from openpano_torch.camera.bundle_adjuster import assemble_scatter  # noqa: E402
 from openpano_torch.camera.rotation import rodrigues, \
     rotation_to_angle  # noqa: E402
 from openpano_torch.camera.estimator import estimate_cameras  # noqa: E402
+from openpano_torch.geometry import ransac  # noqa: E402
 from openpano_torch.match.matcher import match_all_pairs  # noqa: E402
 from openpano_torch.ops import windows  # noqa: E402
 from openpano_torch.io import wirecodec  # noqa: E402
@@ -209,6 +219,14 @@ OVERLAP = 0.4                   # the TRANS strip's
 HEADLINE = dict(MAX_KP_PER_IMAGE=2048, MAX_MATCHES_PER_PAIR=1024)
 REPROJ_LIMIT_PX = headline.REPROJ_LIMIT_PX
 GATE = 1e-4                     # max|a-b| / max|b|, kernel vs plain
+# the RANSAC kernel against the card's plain chain, whose sums take its
+# libraries' orders: a match on the threshold's edge may fall the other
+# way and move a pair's best hypothesis, so the winners (inlier count,
+# success, inliers) agree on this share of the pairs; the transforms of
+# the pairs that agree lie within RANSAC_GAP_PX over their inliers (a
+# build summing in orders of its own put them 0.079 px apart on an H100)
+RANSAC_AGREE = 0.99
+RANSAC_GAP_PX = 0.25
 # the chained placement on this strip is off by 24.98 px at most (H100 runs
 # of this script); the limit leaves twice that
 CHAIN_LIMIT_PX = 50.0
@@ -248,9 +266,12 @@ SLAB = ("gather_window_slabs", windows.gather_window_slabs,
 # name, wrapper, what it replaces: no TPU kernel (XLA fused the JAX chain)
 EXTREMA = ("detect_extrema", extrema.detect_extrema,
            "none: openpano_tpu/sift/extrema.py is left to XLA")
-WRAPPERS = [w for _, w, _, _, _ in KERNELS] + [SLAB[1], EXTREMA[1]]
+RANSAC = ("estimate_transform", ransac.estimate_transform,
+          "none: openpano_tpu/geometry/ransac.py is left to XLA")
+WRAPPERS = [w for _, w, _, _, _ in KERNELS] + [SLAB[1], EXTREMA[1],
+                                                 RANSAC[1]]
 # the kernels every stitch path launches
-ON_PATH = [n for n, _, _, _, _ in KERNELS] + [EXTREMA[0]]
+ON_PATH = [n for n, _, _, _, _ in KERNELS] + [EXTREMA[0], RANSAC[0]]
 # operations each in-window pixel needs: K1 weight (r^2, exp, product),
 # bin (scale, add, floor, wrap) and the add into the bin; K2 the rotation
 # and division by the bin width, three bin coordinates, the weight, the
@@ -528,6 +549,164 @@ def extrema_phase(batches: dict) -> dict:
                 library_ms=None, on_path=True)
 
 
+def capture_ransac_inputs(u8: np.ndarray, cfg: Config) -> tuple:
+    """What the stitch path of ``cfg`` hands ``estimate_transform_batch``
+    for the views ``u8`` on the card: (match result, pos, valid, whs, ii,
+    jj) of the pairs its matching keeps, their keys, the configuration and
+    ``affine``."""
+    feats = compute_features(u8, cfg, dev="cuda")
+    whs = torch.tensor([[u8.shape[2], u8.shape[1]]] * u8.shape[0],
+                       dtype=torch.float32, device="cuda")
+    real, seen = stitcher.estimate_transform_batch, []
+
+    def rec(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    stitcher.estimate_transform_batch = rec
+    try:
+        stitcher.build_pairwise_graph(feats, whs, cfg,
+                                      prng.key((0, 7), "cuda"),
+                                      ordered=cfg.ORDERED_INPUT,
+                                      affine=cfg.TRANS)
+    finally:
+        stitcher.estimate_transform_batch = real
+    check(len(seen) == 1, f"{len(seen)} RANSAC calls for one graph")
+    (args, kw), = seen
+    return args[:6], kw["keys"], cfg, args[8]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (a NaN equals a NaN of the same bits)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def inlier_counts(info) -> torch.Tensor:
+    """The best hypothesis's inlier count of each pair: ``count`` where it
+    connects, ``-confidence`` where it fails."""
+    return torch.where(info.count > 0, info.count.double(),
+                       -info.confidence.double()).round().long()
+
+
+def homography_gaps(Ha, Hb, pts, w) -> np.ndarray:
+    """Each pair's largest distance between the images of its rows ``pts``
+    [P, M, 2] where ``w`` [P, M] is set, under Ha and under Hb, in
+    float64 (0 for a pair with no such row)."""
+    Ha, Hb, pts = (np.asarray(a.cpu(), np.float64) for a in (Ha, Hb, pts))
+    d = np.linalg.norm(bench_ref.apply_h(Ha, pts) - bench_ref.apply_h(Hb, pts),
+                       axis=-1)
+    return np.where(w.cpu().numpy(), d, 0.0).max(axis=1)
+
+
+def ransac_flops(res, nh: int, affine: bool) -> int:
+    """Floating-point operations of the kernel's hypotheses, counting every
+    one healthy: a fit of ns drawn rows (the scales' sums, the normal
+    matrix's lower triangle and right-hand side by multiply-adds over the
+    2 ns stacked rows, the Cholesky factor and two triangular solves) and
+    the projection and test of every row up to the pair's last valid one
+    (3 x 4 for the product, 2 divisions, 2 differences, 2 squares, an add
+    and the comparison: 20)."""
+    ns, npar = (7, 6) if affine else (8, 8)
+    fit = (2 * ns * 3 + 2 * ns * (npar * (npar + 1) // 2 + npar) * 2
+           + 2 * npar ** 3 // 3 + 2 * npar ** 2 + 36)
+    M = res.valid.shape[1]
+    last = (res.valid * torch.arange(1, M + 1, device=res.valid.device)
+            ).amax(dim=1)
+    return int(nh * (fit * res.valid.shape[0] + 20 * int(last.sum())))
+
+
+def ransac_phase(batches: dict) -> dict:
+    """The RANSAC kernel on each path's pairs (``batches``: path label ->
+    :func:`capture_ransac_inputs`): one launch a call, two calls
+    bit-identical; each connected pair's transform within the cmu0 cell's
+    ``refit_px`` limit of a float64 refit of its own inliers; against the
+    plain chain on the same card tensors, which sums in its libraries'
+    orders, the best hypothesis's inlier count, success and inliers equal
+    on at least RANSAC_AGREE of the pairs and the transforms of those that
+    connect within RANSAC_GAP_PX over their inliers, the pairs equal bit
+    for bit reported.  Times of the kernel and the plain chain on the
+    first path's pairs, with the least time the card could take."""
+    name, wrapper, replaces = RANSAC
+    with open(os.path.join(BENCH_DIR, "limits",
+                           "camera_linear.cmu0_unordered38.json")) as f:
+        refit_limit = json.load(f)["refit_px"]
+    worst = dict(refit=0.0, gap=0.0)
+    for label, (args, keys, cfg, affine) in batches.items():
+        res, pos, valid, whs, ii, jj = args
+        call = lambda: ransac.estimate_transform_batch(
+            *args, None, cfg, affine, keys=keys)
+        before = wrapper.launches
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        launched = (wrapper.launches - before) / 2
+        check(launched == 1, f"{name} ({label}): {launched} launches a call")
+        check(all(same_bits(u, v) for u, v in zip(a, b)),
+              f"{name} ({label}): two runs differ")
+        p = ransac.estimate_transform_batch_plain(*args, keys, cfg, affine)
+        P = len(ii)
+        ok = a.count > 0
+        check(int(ok.sum()) > 0, f"{name} ({label}): no pair connects")
+        want = torch.as_tensor(bench_ref.refit(
+            a.to_pos.cpu().numpy(), a.from_pos.cpu().numpy(),
+            a.valid.cpu().numpy(), affine))
+        refit = float(homography_gaps(a.homo, want, a.from_pos,
+                                      a.valid).max())
+        agree = (inlier_counts(a) == inlier_counts(p)) & (ok == (p.count > 0))
+        for u, v in ((a.to_pos, p.to_pos), (a.from_pos, p.from_pos),
+                     (a.valid, p.valid)):
+            agree &= (u == v).reshape(P, -1).all(dim=1)
+        both = agree & ok
+        gap = homography_gaps(a.homo[both], p.homo[both], a.from_pos[both],
+                              a.valid[both])
+        gap = float(gap.max()) if gap.size else 0.0
+        equal = sum(all(same_bits(f[k], g[k]) for f, g in zip(a, p))
+                    for k in range(P))
+        print(f"{name} [{label}] affine={affine} pairs={P} M="
+              f"{res.idx.shape[1]} connect={int(ok.sum())} launches a call="
+              f"1 bit-identical repeat=True refit_px={refit:.4g} (limit "
+              f"{refit_limit}) against the card's plain chain: inlier count, "
+              f"success and inliers equal on {int(agree.sum())}, largest "
+              f"transform gap {gap:.4g} px, bit-equal on {equal}")
+        check(refit < refit_limit, f"{name} ({label}): refit_px {refit:.4g}")
+        check(float(agree.float().mean()) >= RANSAC_AGREE,
+              f"{name} ({label}): the plain chain's best differs on "
+              f"{P - int(agree.sum())} of {P} pairs")
+        check(gap < RANSAC_GAP_PX, f"{name} ({label}): transforms {gap:.4g} "
+              f"px from the plain chain's")
+        worst = dict(refit=max(worst["refit"], refit),
+                     gap=max(worst["gap"], gap))
+    args, keys, cfg, affine = next(iter(batches.values()))
+    ms = median_ms(lambda: ransac.estimate_transform_batch(
+        *args, None, cfg, affine, keys=keys), 20)
+    plain_ms = median_ms(lambda: ransac.estimate_transform_batch_plain(
+        *args, keys, cfg, affine), 3)
+    ops = ransac_flops(args[0], cfg.RANSAC_ITERATIONS, affine)
+    bound_ms = ops / F32_FLOPS_PER_S * 1e3
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms by operations ({len(args[4])} pairs, "
+          f"{cfg.RANSAC_ITERATIONS} hypotheses, {ops} flops; torch "
+          f"{torch.__version__}, cuBLAS {cublas_version()})")
+    return dict(name=name, route="cuda", source="openpano_torch/csrc/ransac.cu",
+                replaces=replaces, launches=None, max_abs_err=worst["gap"],
+                refit_px=worst["refit"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="operations", library_ms=None,
+                on_path=True)
+
+
+def cublas_version() -> str:
+    """The cuBLAS that PyTorch loads, by its wheel's version, or "unknown"
+    where no such wheel is installed."""
+    from importlib import metadata
+    for dist in ("nvidia-cublas-cu12", "nvidia-cublas"):
+        try:
+            return metadata.version(dist)
+        except metadata.PackageNotFoundError:
+            pass
+    return "unknown"
+
+
 
 def slab_case(dev):
     """Seeded random K3 case: planes of sizes no multiple of 8 or 128,
@@ -789,7 +968,8 @@ def reset_counts():
 
 def read_counts() -> dict:
     return {n: w.launches for n, w in
-            [(n, w) for n, w, _, _, _ in KERNELS] + [SLAB[:2], EXTREMA[:2]]}
+            [(n, w) for n, w, _, _, _ in KERNELS] + [SLAB[:2], EXTREMA[:2],
+                                                     RANSAC[:2]]}
 
 
 def drive(label: str, u8: np.ndarray, cfg: Config, key=None,
@@ -1700,7 +1880,7 @@ def main(kernels_only: bool = False) -> int:
     t_start = time.perf_counter()
 
     with phase("2 build"):
-        for source in ("windows", "extrema"):
+        for source in ("windows", "extrema", "ransac"):
             lib = _build.build_cuda(source)
             print(f"build: {lib.name}")
             for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1728,6 +1908,9 @@ def main(kernels_only: bool = False) -> int:
         report.append(slab_phase(batches["main"]["descriptor_histogram"]))
         report.append(extrema_phase(batches))
         del batches
+        report.append(ransac_phase({
+            "main": capture_ransac_inputs(u8, Config(**HEADLINE)),
+            "TRANS": capture_ransac_inputs(strip, Config(**TRANS))}))
     if kernels_only:
         print(json.dumps({"kernels": report}))
         return 0

@@ -9,14 +9,24 @@ best hypothesis's inliers are refit and then pass the gates of
 fill_inliers_to_matchinfo (transform_estimate.cc:150-218).  As in the JAX
 package, duplicate draws within a hypothesis are kept (the DLT turns
 singular and ``health`` rejects it).
+
+Card tensors take one CUDA kernel over all pairs
+(``csrc/ransac.cu``, one block a pair; the note there says what bounds it
+and how the design answers that) in place of the plain version's chain of
+some 1,400 small PyTorch operators a chunk of ``PAIR_CHUNK`` pairs.  CPU
+tensors take :func:`estimate_transform_plain`, which the tests hold
+against the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
+from .._build import cuda_library
 from ..config import Config
 from ..match.matcher import MatchResult
 from ..ops.compact import compact_indices
@@ -24,6 +34,7 @@ from ..utils import prng
 from ..utils.timer import span
 from .dlt import normalized_transform
 from .homography import (
+    HOMO_MAX_PERSPECTIVE,
     health,
     homo_inverse,
     overlap_area_fraction,
@@ -56,12 +67,11 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, a.shape[-1])
 
 
-def estimate_transform(match: MatchResult, pos1, valid1, pos2, valid2, wh1,
-                       wh2, keys, cfg: Config, affine: bool) -> MatchInfo:
-    """Transforms from image 2 to image 1 for a batch of P pairs.
-
-    match: MatchResult [P, M, ...]; pos*: [P, K, 2] half-shifted keypoints;
-    valid*: [P, K]; wh*: [P, 2] image (w, h); keys: [P, 2] threefry keys."""
+def estimate_transform_plain(match: MatchResult, pos1, valid1, pos2, valid2,
+                             wh1, wh2, keys, cfg: Config,
+                             affine: bool) -> MatchInfo:
+    """The plain PyTorch version of :func:`estimate_transform`: the CPU
+    route."""
     P, M = match.idx.shape[0], match.idx.shape[1]
     dev = match.idx.device
     p1 = _take(pos1, match.idx[..., 0])
@@ -147,26 +157,144 @@ def estimate_transform(match: MatchResult, pos1, valid1, pos2, valid2, wh1,
     )
 
 
+def estimate_transform(match: MatchResult, pos1, valid1, pos2, valid2, wh1,
+                       wh2, keys, cfg: Config, affine: bool) -> MatchInfo:
+    """Transforms from image 2 to image 1 for a batch of P pairs.
+
+    match: MatchResult [P, M, ...]; pos*: [P, K, 2] half-shifted keypoints;
+    valid*: [P, K]; wh*: [P, 2] image (w, h); keys: [P, 2] threefry keys.
+    The kernel for card tensors, :func:`estimate_transform_plain` for CPU
+    ones; ``estimate_transform.launches`` counts the kernel launches."""
+    if pos1.device.type == "cuda":
+        with span("kernel.ransac"):
+            return estimate_transform_cuda(
+                match, (pos1, valid1, wh1), (pos2, valid2, wh2), None, keys,
+                cfg, affine)
+    return estimate_transform_plain(match, pos1, valid1, pos2, valid2, wh1,
+                                    wh2, keys, cfg, affine)
+
+
+estimate_transform.launches = 0
+
+
 def estimate_transform_batch(matches: MatchResult, pos, valid, whs, ii, jj,
                              key, cfg: Config, affine: bool,
                              keys=None) -> MatchInfo:
-    """estimate_transform over a flat pair axis, ``PAIR_CHUNK`` pairs at a
-    time.  pos/valid: [N, K, 2] / [N, K]; whs: [N, 2]; ii/jj: [P] image
-    indices.  ``keys`` ([P, 2]) overrides ``prng.split(key, P)`` — pass the
-    original slots' keys when running a compacted subset of pairs."""
+    """estimate_transform over a flat pair axis.  pos/valid: [N, K, 2] /
+    [N, K]; whs: [N, 2]; ii/jj: [P] image indices.  ``keys`` ([P, 2])
+    overrides ``prng.split(key, P)`` — pass the original slots' keys when
+    running a compacted subset of pairs.  One kernel launch takes every
+    pair of card tensors; :func:`estimate_transform_batch_plain` those of
+    CPU tensors."""
+    if keys is None:
+        keys = prng.split(key, len(ii))
+    if pos.device.type == "cuda":
+        ij = torch.stack([torch.as_tensor(ii), torch.as_tensor(jj)])
+        with span("kernel.ransac"):
+            return estimate_transform_cuda(
+                matches, (pos, valid, whs), (pos, valid, whs),
+                ij.to(pos.device, torch.int64), keys, cfg, affine)
+    return estimate_transform_batch_plain(matches, pos, valid, whs, ii, jj,
+                                          keys, cfg, affine)
+
+
+def estimate_transform_batch_plain(matches: MatchResult, pos, valid, whs, ii,
+                                   jj, keys, cfg: Config,
+                                   affine: bool) -> MatchInfo:
+    """:func:`estimate_transform_plain` over a flat pair axis,
+    ``PAIR_CHUNK`` pairs at a time; arguments as for
+    :func:`estimate_transform_batch` with the keys given."""
     ii = torch.as_tensor(ii, device=pos.device)
     jj = torch.as_tensor(jj, device=pos.device)
-    P = ii.shape[0]
-    if keys is None:
-        keys = prng.split(key, P)
     parts = []
-    for lo in range(0, P, PAIR_CHUNK):
+    for lo in range(0, ii.shape[0], PAIR_CHUNK):
         sl = slice(lo, lo + PAIR_CHUNK)
         i, j = ii[sl], jj[sl]
-        parts.append(estimate_transform(
+        parts.append(estimate_transform_plain(
             MatchResult(*(f[sl] for f in matches)), pos[i], valid[i], pos[j],
             valid[j], whs[i], whs[j], keys[sl], cfg, affine))
     return MatchInfo(*(torch.cat(f, dim=0) for f in zip(*parts)))
+
+
+# ---------------------------------------------------------------------------
+# CUDA launcher
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _lib():
+    """The kernel library, loaded and its argument types set once."""
+    lib = cuda_library("ransac")
+    # pointers and the stream as c_void_p: a bare int would pass as 32 bits
+    lib.ransac_launch.argtypes = (
+        [_I] * 4 + [_P] * 8 + [_I] + [_P] * 3 + [_I] * 2 + [_F] * 4 + [_I]
+        + [_P] * 7)
+    lib.ransac_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape: tuple, dev):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}; "
+                         f"the kernel takes {dtype} {shape} on {dev}")
+    return t.contiguous()
+
+
+def estimate_transform_cuda(match: MatchResult, side_i, side_j, ij, keys,
+                            cfg: Config, affine: bool) -> MatchInfo:
+    """Launch the RANSAC kernel once for P pairs.  side_*: (pos [N, K, 2],
+    valid [N, K], wh [N, 2]) of image i and of image j of each pair, the
+    positions and sizes float32; ij: [2, P] int64 rows of those images, or
+    None for row p of both.  Raises ValueError for other dtypes or
+    shapes."""
+    P, M = match.idx.shape[0], match.idx.shape[1]
+    dev = match.idx.device
+    nh = cfg.RANSAC_ITERATIONS
+    if nh < 1 or M < 1:
+        raise ValueError(f"{nh} hypotheses, {M} match rows: the kernel "
+                         f"takes at least one of each")
+    idx = _check("match.idx", match.idx, torch.int64, (P, M, 2), dev)
+    mvalid = _check("match.valid", match.valid, torch.bool, (P, M), dev)
+    count = _check("match.count", match.count, torch.int64, (P,), dev)
+    keys = _check("keys", keys, torch.int64, (P, 2), dev)
+    sides = []
+    for name, (pos, valid, wh) in (("i", side_i), ("j", side_j)):
+        N, K = pos.shape[0], pos.shape[1]
+        if ij is None and N != P:
+            raise ValueError(f"image {name}: {N} rows for {P} pairs")
+        sides.append((_check(f"pos_{name}", pos, torch.float32, (N, K, 2),
+                             dev),
+                      _check(f"valid_{name}", valid, torch.bool, (N, K), dev),
+                      _check(f"wh_{name}", wh, torch.float32, (N, 2), dev),
+                      K))
+    if ij is not None:
+        ij = _check("ij", ij, torch.int64, (2, P), dev)
+    out = MatchInfo(
+        homo=torch.empty(P, 3, 3, dtype=torch.float32, device=dev),
+        confidence=torch.empty(P, dtype=torch.float32, device=dev),
+        to_pos=torch.empty(P, M, 2, dtype=torch.float32, device=dev),
+        from_pos=torch.empty(P, M, 2, dtype=torch.float32, device=dev),
+        valid=torch.empty(P, M, dtype=torch.bool, device=dev),
+        count=torch.empty(P, dtype=torch.int64, device=dev))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    (pi, vi, wi, Ki), (pj, vj, wj, Kj) = sides
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ransac_launch(
+            P, M, nh, int(affine), idx.data_ptr(), mvalid.data_ptr(),
+            count.data_ptr(), keys.data_ptr(), ptr(ij), pi.data_ptr(),
+            vi.data_ptr(), wi.data_ptr(), Ki, pj.data_ptr(), vj.data_ptr(),
+            wj.data_ptr(), Kj, ESTIMATE_MIN_NR_MATCH, cfg.RANSAC_INLIER_THRES,
+            cfg.INLIER_IN_MATCH_RATIO, cfg.INLIER_IN_POINTS_RATIO,
+            HOMO_MAX_PERSPECTIVE, cfg.OVERLAP_AREA_GRID,
+            *[t.data_ptr() for t in out], stream)
+    if err != 0:
+        raise RuntimeError(f"RANSAC kernel launch failed: CUDA error {err}")
+    if P:
+        estimate_transform.launches += 1
+    return out
 
 
 def reverse_matchinfo(info: MatchInfo) -> MatchInfo:

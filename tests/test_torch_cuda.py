@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain versions (the window
-kernels within a gate, the extrema kernels bit for bit), and the card's
-paths against the CPU or their in-memory forms (the pair-major LM, a
+kernels within a gate, the extrema kernels bit for bit, the RANSAC kernel
+against a float64 refit of its own inliers and the CPU's plain chain), and
+the card's paths against the CPU or their in-memory forms (the pair-major LM, a
 CYLINDER + multiband stitch, BRIEF, the host-stream blends, the CLI).
 
 Needs an NVIDIA card and ``nvcc``; skips elsewhere (the kernels have no CPU
@@ -260,6 +261,166 @@ def test_extrema_kernels_equal_plain_at_the_cells_shapes(cell_octaves,
     assert [c for _, c, _ in seen] == [4096, 2048, 1024, 512]
     for dog, cap_cand, cap_kp in seen:
         assert _extrema_both(dog, cap_cand, cap_kp, cfg).valid.any()
+
+
+@pytest.fixture(scope="module")
+def sweep_ransac():
+    """What the main path hands ``estimate_transform_batch`` for panorama 0
+    of the benchmark's cmu0 traffic (38 views of 1300x867 of a 336 degree
+    sweep, ``benchmark/generators/sweep.py``): its kept pairs, about 700 of
+    703, with their keypoints and keys, and the cell's configuration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from benchmark import scenes
+    from openpano_torch.config import Config
+    from openpano_torch.stitch import stitcher
+    from openpano_torch.stitch.stitcherbase import compute_features
+    from openpano_torch.utils import prng
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bench = os.path.join(root, "benchmark")
+    with open(os.path.join(bench, "configs", "camera_linear.json")) as f:
+        program = json.load(f)["program"]
+    with open(os.path.join(bench, "traffic", "cmu0_unordered38.json")) as f:
+        spec = json.load(f)
+    cfg = Config(**program, **spec["program"])
+    gen, p = scenes.generator(spec["kind"]), spec["params"]
+    seed = 2**31 + 23
+    views, _ = gen.view_set(gen.build(p, seed, "cuda"), p, seed, 0)
+    feats = compute_features(views, cfg)
+    whs = torch.tensor([[p["width"], p["height"]]] * p["n"],
+                       dtype=torch.float32, device="cuda")
+    real, seen = stitcher.estimate_transform_batch, []
+
+    def rec(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stitcher, "estimate_transform_batch", rec)
+        stitcher.build_pairwise_graph(feats, whs, cfg, prng.key((0, 7), "cuda"),
+                                      ordered=False, affine=False)
+    (args, kw), = seen
+    return cfg, args[:6], kw["keys"]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (a NaN equals a NaN of the same bits)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _rows_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[P] whether row p of a and of b are equal bit for bit."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return (a == b).reshape(a.shape[0], -1).all(dim=1)
+
+
+def _inlier_counts(info) -> torch.Tensor:
+    """The best hypothesis's inlier count of each pair: ``count`` where it
+    connects, ``-confidence`` where it fails."""
+    return torch.where(info.count > 0, info.count.double(),
+                       -info.confidence.double()).round().long().cpu()
+
+
+def _gaps(Ha, Hb, pts, w) -> np.ndarray:
+    """Each pair's largest distance between the images of its rows ``pts``
+    [P, M, 2] where ``w`` is set, under Ha and under Hb, in float64."""
+    from benchmark.reference import apply_h
+
+    Ha, Hb, pts = (np.asarray(torch.as_tensor(a).cpu(), np.float64)
+                   for a in (Ha, Hb, pts))
+    d = np.linalg.norm(apply_h(Ha, pts) - apply_h(Hb, pts), axis=-1)
+    return np.where(w.cpu().numpy(), d, 0.0).max(axis=1, initial=0.0)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("M", [1024, 64])
+def test_ransac_kernel_against_refit_and_plain(sweep_ransac, affine, M):
+    """The RANSAC kernel on the kept pairs of a cmu0 panorama, perspective
+    and affine, at the cell's 1024 match rows and cut to 64 (the counts
+    are not clipped, so many pass the buffer), with every 16th pair
+    emptied (count 0, no valid row: the mesh path's padding).  Gated on
+    what no summation order moves: one launch a call and the same bits
+    from every entry point; empty pairs fail; each connected pair's
+    transform within the cmu0 cell's ``refit_px`` limit of a float64
+    refit of its own inliers; against the plain chain on the CPU, whose
+    sums round in other orders (so a match on the threshold's edge may
+    fall the other way and move a pair's best hypothesis; Threefry bit
+    errors would move them all), the same winner on 99% of the pairs: its
+    inlier count (the kernel's recount of its winner, the chain's score of
+    its own), success and the inlier lists equal, and the transforms of
+    those that connect within 0.25 px over the inliers.
+    The pairs equal bit for bit to the plain chain on the card, whose
+    orders the kernel copies, are reported."""
+    from openpano_torch.geometry import ransac
+    from openpano_torch.match.matcher import MatchResult
+
+    cfg, (res, pos, valid, whs, ii, jj), keys = sweep_ransac
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "limits",
+                           "camera_linear.cmu0_unordered38.json")) as f:
+        refit_limit = json.load(f)["refit_px"]
+    P = len(ii)
+    empty = torch.arange(P, device="cuda") % 16 == 5
+    res = MatchResult(res.idx[:, :M].contiguous(),
+                      res.valid[:, :M] & ~empty[:, None],
+                      torch.where(empty, 0, res.count))
+    assert P > 600 and ((res.count > M).sum() > 50) == (M == 64)
+    side = (pos, valid, whs)
+    ij = torch.tensor([ii, jj], dtype=torch.int64, device="cuda")
+    before = ransac.estimate_transform.launches
+    got = [ransac.estimate_transform_cuda(res, side, side, ij, keys, cfg,
+                                          affine) for _ in range(2)]
+    batch = ransac.estimate_transform_batch(res, pos, valid, whs, ii, jj,
+                                            None, cfg, affine, keys=keys)
+    assert ransac.estimate_transform.launches - before == 3
+    for f in ransac.MatchInfo._fields:
+        assert _same_bits(getattr(got[0], f), getattr(got[1], f)), f
+        assert _same_bits(getattr(got[0], f), getattr(batch, f)), f
+    # the CLI's single-pair call: row p of both images
+    for p in (0, P // 2, P - 1):
+        one = ransac.estimate_transform(
+            MatchResult(*(f[p : p + 1] for f in res)), pos[ii[p]][None],
+            valid[ii[p]][None], pos[jj[p]][None], valid[jj[p]][None],
+            whs[ii[p]][None], whs[jj[p]][None], keys[p : p + 1], cfg, affine)
+        for f in ransac.MatchInfo._fields:
+            assert _same_bits(getattr(one, f)[0], getattr(got[0], f)[p]), f
+    got = got[0]
+    ok = (got.count > 0).cpu()
+    assert (got.count[empty] == 0).all() and (got.confidence[empty] <= 0).all()
+    assert not got.valid[empty].any() and int(ok.sum()) > 30
+
+    from benchmark.reference import refit
+    want = refit(got.to_pos.cpu().numpy(), got.from_pos.cpu().numpy(),
+                 got.valid.cpu().numpy(), affine)
+    refit_px = float(_gaps(got.homo, want, got.from_pos, got.valid).max())
+
+    cpu = ransac.estimate_transform_batch_plain(
+        MatchResult(*(f.cpu() for f in res)), pos.cpu(), valid.cpu(),
+        whs.cpu(), ii, jj, keys.cpu(), cfg, affine)
+    agree = ((_inlier_counts(got) == _inlier_counts(cpu))
+             & (ok == (cpu.count > 0)))
+    for f in ("to_pos", "from_pos", "valid"):
+        agree &= _rows_equal(getattr(got, f).cpu(), getattr(cpu, f))
+    both = agree & ok
+    gap = _gaps(got.homo.cpu()[both], cpu.homo[both], got.from_pos.cpu()[both],
+                got.valid.cpu()[both])
+    card = ransac.estimate_transform_batch_plain(res, pos, valid, whs, ii,
+                                                 jj, keys, cfg, affine)
+    equal = sum(all(_same_bits(getattr(got, f)[p], getattr(card, f)[p])
+                    for f in ransac.MatchInfo._fields) for p in range(P))
+    print(f"\nRANSAC kernel (affine={affine}, M={M}): {P} pairs, "
+          f"{int(ok.sum())} connect; refit_px {refit_px:.4g} (limit "
+          f"{refit_limit}); against the CPU's plain chain: inlier count and "
+          f"success and inliers equal on {int(agree.sum())}, largest gap "
+          f"{gap.max(initial=0.0):.4g} px; bit-equal to the card's plain "
+          f"chain on {equal} (torch {torch.__version__})")
+    assert refit_px < refit_limit
+    assert float(agree.float().mean()) >= 0.99, int((~agree).sum())
+    assert gap.max(initial=0.0) < 0.25
 
 
 @pytest.mark.parametrize("banded", [False, True])

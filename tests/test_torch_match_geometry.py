@@ -326,6 +326,32 @@ def test_ransac_refit_gap_is_the_scale_sums(feats, M, monkeypatch):
     assert _rel(ti.homo.numpy()[ok], np.asarray(ji.homo)[ok]) < 1e-6
 
 
+@pytest.mark.parametrize("affine", [False, True])
+def test_ransac_cpu_takes_the_plain_chain(feats, affine):
+    """CPU tensors launch no kernel: the batch and the single-call entry
+    points give what estimate_transform_plain gives, bit for bit."""
+    from openpano_torch.utils import prng
+
+    pos, desc, valid = (_t(a) for a in feats)
+    tm = tmatch.match_ring_pairs(desc, valid, TCFG)
+    n = pos.shape[0]
+    ii, jj = list(range(n)), [(i + 1) % n for i in range(n)]
+    whs = _t(np.array([[W, H]] * n, np.float32))
+    keys = prng.split(prng.key((0, 3)), n)
+    before = transac.estimate_transform.launches
+    batch = transac.estimate_transform_batch(tm, pos, valid, whs, ii, jj,
+                                             None, TCFG, affine, keys=keys)
+    args = (tm, pos[ii], valid[ii], pos[jj], valid[jj], whs[ii], whs[jj],
+            keys, TCFG, affine)
+    one = transac.estimate_transform(*args)
+    want = transac.estimate_transform_plain(*args)
+    assert transac.estimate_transform.launches == before
+    assert (want.count > 0).sum() >= n - 1
+    for f in transac.MatchInfo._fields:
+        assert torch.equal(getattr(batch, f), getattr(want, f)), f
+        assert torch.equal(getattr(one, f), getattr(want, f)), f
+
+
 def test_convex_hull_matches():
     rng = np.random.default_rng(9)
     for n in (1, 2, 3, 50, 400):
