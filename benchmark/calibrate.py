@@ -53,7 +53,8 @@ def readings(cell, seed: int, panos: int, faults, device: str,
 
         def one(views, truth, variants):
             info = {}
-            probes.armed, probes.captured, probes.kps = True, None, []
+            probes.armed = True
+            probes.reset()
             canvas, mask = openpano_torch.stitch_images(
                 views, cfg, output="u8", info_out=info, **kw)
             probes.armed = False

@@ -108,7 +108,43 @@ def canvas_altered():
     return _patched(stitcher, "blend_linear_stream_u8", make)
 
 
+def _cylinder(name, make):
+    from openpano_torch.stitch import cylstitcher
+
+    return _patched(cylstitcher, name, make)
+
+
+def warp_radius_off():
+    """CYLINDER: the image warp's cylinder radius 3% too large; the
+    keypoints are warped right."""
+    return _cylinder("warp_images", lambda orig: lambda proj, *a, **k: orig(
+        proj._replace(r=proj.r * 1.03), *a, **k))
+
+
+def correction_skipped():
+    """CYLINDER: the perspective correction returns the canvas as it got
+    it."""
+    return _cylinder("perspective_correction",
+                     lambda orig: lambda canvas, *a, **k: canvas)
+
+
+def left_chain_reversed():
+    """CYLINDER: the left half's steps (i -> i + 1) chained in the reverse
+    order of the pairs, each step's inliers with it."""
+    def make(orig):
+        def run(matches, pos, valid, whs, ii, jj, *a, **k):
+            info = orig(matches, pos, valid, whs, ii, jj, *a, **k)
+            if (jj < ii).all():
+                info = type(info)(*(f.flip(0) for f in info))
+            return info
+        return run
+    return _cylinder("estimate_transform_batch", make)
+
+
 FAULTS = {"lm_unchanged": lm_unchanged, "kp_scaled": kp_scaled,
           "desc_altered": desc_altered, "desc_rotated": desc_rotated,
           "blend_unchanged": blend_unchanged,
-          "half_batch": half_batch, "canvas_altered": canvas_altered}
+          "half_batch": half_batch, "canvas_altered": canvas_altered,
+          "warp_radius_off": warp_radius_off,
+          "correction_skipped": correction_skipped,
+          "left_chain_reversed": left_chain_reversed}

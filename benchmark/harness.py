@@ -12,14 +12,18 @@ with the last panorama completed.
 
 The harness reads the port's own stage timers (``utils.timer``) and
 transport counters (``io.wirecodec.STATS``) around each panorama.  It
-wraps three of the port's functions for the whole run: the descriptor
-stage of the detector and the all-pairs and the ring matcher, to copy to
-the host the keypoints and descriptors the features gave and what the
-matcher got and returned, in the panoramas drawn for the comparison.  With ``trace``, one panorama
-after the middle of the window runs under ``torch.profiler``, with ranges
-around the stitch and its stages (the port's ``total_timer`` scopes) and a
-recorder on K2's launcher; the per-layer metrics read the other, clean
-panoramas and that one.
+wraps some of the port's functions for the whole run: the descriptor
+stage of the detector and the all-pairs, the ring and the adjacent-pair
+matcher, to copy to the host the keypoints and descriptors the features
+gave and what the matcher got and returned, in the panoramas drawn for
+the comparison; in CYLINDER mode also the cylinder stitcher's projector
+and its RANSAC calls, to copy the pairs its chain multiplied (the
+h-factor search's winning trial and the left half), which its
+``info_out`` does not hold.  With ``trace``, one panorama after the
+middle of the window runs under ``torch.profiler``, with ranges around
+the stitch and its stages (the port's ``total_timer`` scopes, of the
+general and the cylinder stitcher) and a recorder on K2's launcher; the
+per-layer metrics read the other, clean panoramas and that one.
 """
 
 from __future__ import annotations
@@ -83,8 +87,8 @@ class Run:
 def settings_of(cfg, cell: spec.Cell) -> dict:
     """The configuration values the comparison needs, as plain data."""
     keys = ("MATCH_REJECT_NEXT_RATIO", "MAX_MATCHES_PER_PAIR",
-            "ORDERED_INPUT", "TRANS", "ESTIMATE_CAMERA", "MAX_OUTPUT_SIZE",
-            "MULTIBAND") + sift_ref.KEYS
+            "ORDERED_INPUT", "TRANS", "ESTIMATE_CAMERA", "CYLINDER",
+            "FOCAL_LENGTH", "MAX_OUTPUT_SIZE", "MULTIBAND") + sift_ref.KEYS
     return {**{k: getattr(cfg, k) for k in keys},
             "precision": cell.config["precision"],
             "reference": cell.config.get("reference", "reference")}
@@ -121,16 +125,27 @@ class Probes:
         self.armed = False
         self.captured = None
         self.kps = []
+        self.chain = []          # CYLINDER: (h-factor, ii, jj, MatchInfo)
+        self._factor = None
         self.k2_calls = None     # list while the traced panorama runs
         self.ranges = False
         from openpano_torch.sift import detector
+        from openpano_torch.stitch import cylstitcher
 
         self._wrap(detector, "describe_keypoints", self._describe)
         for name in ("match_all_pairs", "match_ring_pairs"):
             self._wrap(stitcher, name, self._matcher)
+        self._wrap(cylstitcher, "match_adjacent_pairs", self._matcher)
+        self._wrap(cylstitcher, "make_projector", self._projector)
+        self._wrap(cylstitcher, "estimate_transform_batch", self._chain)
         if traced:
             self._wrap(windows, "desc_hist_cuda", self._k2)
-            self._wrap(stitcher, "total_timer", self._timer)
+            for mod in (stitcher, cylstitcher):
+                self._wrap(mod, "total_timer", self._timer)
+
+    def reset(self):
+        """Forget what the last panorama left."""
+        self.captured, self.kps, self.chain = None, [], []
 
     def _wrap(self, mod, name, make):
         orig = getattr(mod, name)
@@ -148,6 +163,24 @@ class Probes:
                 self.captured = dict(desc=desc.cpu(), valid=valid.cpu(),
                                      idx=res.idx.cpu(), count=res.count.cpu())
             return res
+        return probe
+
+    def _projector(self, orig):
+        def probe(w, h, h_factor, cfg):
+            self._factor = h_factor
+            return orig(w, h, h_factor, cfg)
+        return probe
+
+    def _chain(self, orig):
+        def probe(matches, pos, valid, whs, ii, jj, key, cfg, affine,
+                  keys=None):
+            info = orig(matches, pos, valid, whs, ii, jj, key, cfg, affine,
+                        keys=keys)
+            if self.armed:
+                self.chain.append((self._factor, np.asarray(ii),
+                                   np.asarray(jj),
+                                   [f.cpu() for f in info]))
+            return info
         return probe
 
     def _describe(self, orig):
@@ -253,7 +286,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
             profile_now = (traced and profiled_at is None and k not in sample
                            and time.perf_counter() - t0 >= seconds / 2)
             probes.armed = k in sample
-            probes.captured, probes.kps = None, []
+            probes.reset()
             info = {}
             st0 = _stage_totals(timer)
             up0 = wirecodec.STATS["up_bytes"]
@@ -381,11 +414,38 @@ def _capture(views, truth, probes: Probes, info: dict, canvas,
     if probe is None or len(probes.kps) != len(views):
         raise RuntimeError("the probes saw no matcher call or not every "
                            "view's features in a compared panorama")
-    g = info["graph"]
+    if "graph" in info:
+        g = info["graph"]
+        graph = dict(conf=g.conf, homo=g.homo, to_pos=g.to_pos,
+                     from_pos=g.from_pos, valid=g.valid)
+    else:
+        graph = _chain_graph(len(views), probes.chain, info["hfactor"])
     return judge.Capture(
         views=views, truth=truth, desc=probe["desc"], valid=probe["valid"],
-        match_idx=probe["idx"], match_count=probe["count"],
-        graph=dict(conf=g.conf, homo=g.homo, to_pos=g.to_pos,
-                   from_pos=g.from_pos, valid=g.valid),
+        match_idx=probe["idx"], match_count=probe["count"], graph=graph,
         homos=np.asarray(info["homos"], np.float64), canvas=canvas, mask=mask,
-        kps=probes.kps)
+        kps=probes.kps, hfactor=info.get("hfactor"))
+
+
+def _chain_graph(n: int, chain: list, hfactor: float) -> dict:
+    """The pairs a CYLINDER stitch chained, as the general stitcher's
+    graph lays them out: each RANSAC result at [to, from], in warped
+    half-shifted coordinates.  ``chain`` holds the stitch's RANSAC calls
+    in order: the h-factor search's trials (pairs (k, k + 1) right of the
+    middle view), of which the one run at the chosen h-factor made the
+    chain, then the left half (pairs (i + 1, i))."""
+    right = [c for c in chain if c[0] == hfactor and (c[2] > c[1]).all()]
+    left = [c for c in chain if (c[2] < c[1]).all()]
+    if not right and not left:
+        raise RuntimeError("the probes saw no RANSAC call of the chain")
+    M = (right or left)[-1][3][2].shape[1]
+    graph = dict(conf=np.zeros((n, n), np.float32),
+                 homo=np.tile(np.eye(3, dtype=np.float32), (n, n, 1, 1)),
+                 to_pos=np.zeros((n, n, M, 2), np.float32),
+                 from_pos=np.zeros((n, n, M, 2), np.float32),
+                 valid=np.zeros((n, n, M), bool))
+    for _, ii, jj, fields in right[-1:] + left[-1:]:
+        for name, v in zip(("homo", "conf", "to_pos", "from_pos", "valid"),
+                           fields):
+            graph[name][ii, jj] = v.numpy()
+    return graph

@@ -32,7 +32,8 @@ The numbers, by layer:
   pair;
 - ``refit_px`` (RANSAC): the largest distance, over the inliers of every
   connected pair, between the program's transform and the reference's fit
-  to the same inliers;
+  to the same inliers (an affine fit under TRANS and CYLINDER, as
+  transform_estimate.cc:34-37 fits);
 - ``truth_px`` (cameras, and the geometry before them): the largest,
   over the pairs adjacent in the scene, of the mean distance on a grid
   between the final transforms' pair map and the true one;
@@ -42,6 +43,14 @@ The numbers, by layer:
   differ or a channel differs by more than one level from the reference's
   blend of the benchmark's views through the final transforms (1 when the
   canvas sizes differ).
+
+Per mode: CYLINDER matches the n - 1 pairs (i, i + 1), no wrap pair, and
+its graph holds each pair at [i, i + 1] or [i + 1, i]; its final
+transforms map cylinder-warped views.  A reference module that defines
+``view_map`` (a view's points carried into another through the final
+transforms) and ``canvas`` (the whole canvas from the views) judges the
+pair maps and the canvas in its own way (``reference_cylinder.py``); one
+that does not takes the plain homography and ``plan`` with ``blend``.
 """
 
 from __future__ import annotations
@@ -78,13 +87,17 @@ class Capture:
     canvas: np.ndarray           # [h, w, 3] u8
     mask: np.ndarray             # [h, w] bool
     kps: list | None = None      # per view: sift_ref.KP_FIELDS
+    hfactor: float | None = None  # CYLINDER: the h-factor the program chose
     cache: dict = field(default_factory=dict)
 
 
-def pair_list(n: int, ordered: bool):
-    """The pairs the stitcher matches: the ring (i, i+1 mod n) for ordered
-    input, else every i < j in row-major order."""
-    if ordered:
+def pair_list(n: int, s: dict):
+    """The pairs the stitcher matches under the settings ``s``: (i, i+1)
+    with no wrap pair in CYLINDER mode, the ring (i, i+1 mod n) for other
+    ordered input, else every i < j in row-major order."""
+    if s.get("CYLINDER", False):
+        return list(range(n - 1)), list(range(1, n))
+    if s["ORDERED_INPUT"]:
         return list(range(n)), [(i + 1) % n for i in range(n)]
     ii, jj = np.triu_indices(n, 1)
     return ii.tolist(), jj.tolist()
@@ -216,7 +229,7 @@ def _feature_number(name: str):
 def match_diff(cap: Capture, s: dict, variant: str, device) -> float:
     ref = _ref(s)
     n, K = cap.desc.shape[0], cap.desc.shape[1]
-    ii, jj = pair_list(n, s["ORDERED_INPUT"])
+    ii, jj = pair_list(n, s)
     desc, valid = cap.desc.to(device), cap.valid.to(device)
     args = (desc, valid, ii, jj, s["MATCH_REJECT_NEXT_RATIO"],
             s["MAX_MATCHES_PER_PAIR"])
@@ -240,14 +253,17 @@ def refit_px(cap: Capture, s: dict, variant: str, device) -> float:
     ref = _ref(s)
     g = cap.graph
     conf = g["conf"]
-    pairs = [(i, j) for i, j in zip(*pair_list(len(cap.homos),
-                                               s["ORDERED_INPUT"]))
-             if conf[i, j] > 0]
+    pairs = []
+    for i, j in zip(*pair_list(len(cap.homos), s)):
+        if conf[i, j] > 0:
+            pairs.append((i, j))
+        elif s.get("CYLINDER", False) and conf[j, i] > 0:
+            pairs.append((j, i))
     if not pairs:
         return float("inf")
     ii, jj = np.array(pairs).T
     to, fr, w = g["to_pos"][ii, jj], g["from_pos"][ii, jj], g["valid"][ii, jj]
-    affine = s["TRANS"]
+    affine = s["TRANS"] or s.get("CYLINDER", False)
     want = ref.refit(to, fr, w, affine, device=device)
     got = (ref.refit(to, fr, w, affine, dtype=LOW[s["precision"]["ransac"]],
                      device=device)
@@ -268,7 +284,8 @@ def _final(cap: Capture, s: dict, variant: str) -> np.ndarray:
 def _truth_errors(cap: Capture, s: dict, variant: str) -> list:
     """For each pair adjacent in the scene, the mean distance on a 9 x 7
     grid over view b (the points that land in view a) between the final
-    transforms' map from b to a and the true one."""
+    transforms' map from b to a (the reference module's ``view_map`` where
+    it has one) and the true one, in view pixels."""
     ref = _ref(s)
     homos = _final(cap, s, variant)
     w, h = cap.truth["size"]
@@ -279,11 +296,15 @@ def _truth_errors(cap: Capture, s: dict, variant: str) -> list:
     for a, b, T in cap.truth["adjacent"]:
         want = ref.apply_h(T, grid)
         inside = (np.abs(want[:, 0]) < w / 2) & (np.abs(want[:, 1]) < h / 2)
-        if inside.any():
+        if not inside.any():
+            continue
+        if hasattr(ref, "view_map"):
+            got = ref.view_map(homos, a, b, grid[inside], (w, h), s,
+                               cap.hfactor)
+        else:
             got = ref.apply_h(np.linalg.inv(homos[a]) @ homos[b],
                               grid[inside])
-            errs.append(float(np.linalg.norm(got - want[inside],
-                                             axis=1).mean()))
+        errs.append(float(np.linalg.norm(got - want[inside], axis=1).mean()))
     return errs
 
 
@@ -296,18 +317,28 @@ def truth_mean_px(cap: Capture, s: dict, variant: str, device) -> float:
     return float(np.mean(errs)) if errs else float("inf")
 
 
-def canvas_bad(cap: Capture, s: dict, variant: str, device) -> float:
-    ref = _ref(s)
-    n, H, W = cap.views.shape[:3]
+def _plan_and_blend(ref, views: torch.Tensor, homos: np.ndarray, s: dict,
+                    hfactor, dtype=torch.float64):
+    """The canvas of the views through the final transforms, where the
+    reference module has no ``canvas`` of its own: ``plan`` on the views'
+    size, then its ``blend``."""
+    n, H, W = views.shape[:3]
     whs = np.repeat([[float(W), float(H)]], n, 0)
-    pl = ref.plan(cap.homos, whs, n >> 1,
+    pl = ref.plan(homos, whs, n >> 1,
                   "spherical" if s["ESTIMATE_CAMERA"] else "flat",
                   s["MAX_OUTPUT_SIZE"])
+    return ref.blend(views, pl, s, dtype=dtype)
+
+
+def canvas_bad(cap: Capture, s: dict, variant: str, device) -> float:
+    ref = _ref(s)
+    make = getattr(ref, "canvas", None) or (
+        lambda *a, **k: _plan_and_blend(ref, *a, **k))
     views = torch.as_tensor(cap.views, device=device)
-    want, want_m = ref.blend(views, pl, s)
+    want, want_m = make(views, cap.homos, s, cap.hfactor)
     if variant == "control":
-        got, got_m = ref.blend(views, pl, s,
-                               dtype=LOW[s["precision"]["blend"]])
+        got, got_m = make(views, cap.homos, s, cap.hfactor,
+                          dtype=LOW[s["precision"]["blend"]])
     else:
         got = torch.as_tensor(cap.canvas, device=device)
         got_m = torch.as_tensor(cap.mask, device=device)

@@ -15,6 +15,6 @@ def read(run):
     spent = p.get("stage_busy_s", {}).get("match_2nn", 0.0)
     if spent <= 0:
         return None
-    ii, jj = judge.pair_list(p["n"], run.settings["ORDERED_INPUT"])
+    ii, jj = judge.pair_list(p["n"], run.settings)
     return 100.0 * workmodel.least_seconds(
         *workmodel.match_work(p["kpt_counts"], ii, jj)) / spent

@@ -131,8 +131,9 @@ def test_nothing_imports_jax_or_the_jax_package():
 
 
 # the reference, the generators and the yardsticks see nothing of the port
-PLAIN = ("reference.py", "judge.py", "scenes.py", "workmodel.py",
-         "trace.py", "spec.py")
+PLAIN = ("reference.py", "reference_multiband.py", "reference_cylinder.py",
+         "sift_ref.py", "judge.py", "scenes.py", "workmodel.py", "trace.py",
+         "spec.py")
 
 
 def test_reference_imports_nothing_of_the_port():

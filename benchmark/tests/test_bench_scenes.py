@@ -48,7 +48,8 @@ def _pair_error(views, a, b, T, w, h):
     return np.abs(got - want).mean()
 
 
-@pytest.mark.parametrize("kind,params", [("sweep", SWEEP), ("strip", STRIP)])
+@pytest.mark.parametrize("kind,params", [
+    ("sweep", SWEEP), ("sweep", dict(SWEEP, pitch=3.0)), ("strip", STRIP)])
 def test_truth_maps_adjacent_views(kind, params):
     gen = scenes.generator(kind)
     views, truth = gen.view_set(gen.build(params, SEED, "cpu"), params, SEED,
